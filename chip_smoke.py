@@ -1,0 +1,679 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Phases, one JSON line each on standard output:
+
+  env            torch/CUDA versions, the card, the kernel build (every
+                 ``src/repro_torch/csrc/*.cu`` built by ``nvcc`` into
+                 ``build/kernels``, one compiler per source, in parallel).
+  kernels        each CUDA kernel against its plain PyTorch version on the
+                 card, at the shapes the serving step gives it: the fused
+                 charge and gate bit-exact over randomized tables and every
+                 stock program; decode attention within 2e-5 (f32) and 2e-2
+                 (bf16) at B=8, H=24, Hkv=8, d=128, S_max=2048 with ragged
+                 lengths, plus a ragged S_max.  Times from CUDA events.
+  engine_parity  the reduced f32 llama3.2-3b on the CPU and on the card:
+                 decode logits within 1e-4, and the engine's ``report()``
+                 identical in inkernel and userspace modes and under the
+                 weighted step scheduler.
+  engine_full    the full-width llama3.2-3b (28 layers, bf16, random
+                 weights from a seeded generator on the card) serving 8
+                 agent sessions of 2 tenants in inkernel mode; every step
+                 goes through the kernels (launch counts checked), and the
+                 report must equal the same sessions' report on the CPU at
+                 reduced width (the control trajectory follows session
+                 phases, not token values).
+  profile        (only with ``--phases profile``) ``torch.profiler`` over
+                 30 full-width steps: device busy and idle time, and the
+                 kernels that take it.
+
+Then the kernel table (one JSON object), the card's ``name, power.limit``
+as nvidia-smi prints them, and the result line.  Any failed check raises,
+and the script exits non-zero; it also exits non-zero, printing no
+result, where torch sees no CUDA device or the port's sources are not
+beside it.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense bf16 and f32 peaks
+MEM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+INT32_MAX = 2**31 - 1
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    sys.exit(2)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
+    """Mean time of one ``fn()`` from CUDA events around ``iters`` calls
+    issued back to back, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
+    t_bytes = n_bytes / MEM_BYTES_PER_S
+    t_ops = n_ops / PEAK_OPS_PER_S[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+# ------------------------------------------------------------------ kernels
+
+
+def stock_registries(P, S):
+    """Every stock program alone, and all of them in one registry."""
+    grad = P.GraduatedThrottleProgram(step_ms=10.0, overage_gain=7.5)
+    tb = P.TokenBucketProgram(step_ms=10.0, bucket_capacity=6.0,
+                              refill=(0.7, 1.3, 2.9))
+    wf = S.WeightedFairProgram(step_ms=10.0)
+    base = P.PolicyProgram()
+    return {"graduated": (grad,), "token_bucket": (tb,),
+            "weighted_fair": (wf,), "mixed": (grad, tb, wf, base)}
+
+
+def random_table(rng, n, progs, step, exact, P, device):
+    """A random control table over a random depth-<=4 tree: frozen and
+    throttled ancestors, hard-max walls, saturated stall counters and,
+    with ``exact``, overage fractions that land delays on whole step
+    quanta."""
+    depth = np.zeros(n, int)
+    parent = np.full(n, -1, np.int32)
+    active = np.zeros(n, bool)
+    active[0] = True
+    for i in range(1, n):
+        if rng.random() < 0.85:
+            cands = [j for j in range(i) if active[j] and depth[j] < 3]
+            p = int(rng.choice(cands))
+            parent[i], depth[i], active[i] = p, depth[p] + 1, True
+    high = np.where(rng.random(n) < 0.3, INT32_MAX,
+                    rng.integers(1, 40, n)).astype(np.int32)
+    usage = rng.integers(0, 45, n).astype(np.int32)
+    if exact:
+        high = np.where(high < INT32_MAX, 10, high).astype(np.int32)
+        usage = (rng.integers(0, 4, n) * 5).astype(np.int32)
+    width = max(p.n_params for p in progs)
+    rows = np.stack([P.pad_row(progs[k % len(progs)].default_row(), width)
+                     for k in range(n)])
+    if not exact:
+        rows[:, :4] *= rng.uniform(0.5, 1.5, (n, 4)).astype(np.float32)
+    if width >= 10:
+        rows[:, 4] = rng.uniform(0, 6, n)
+        rows[:, 5] = rng.integers(0, step + 1, n)
+    st = {
+        "usage": usage, "high": high,
+        "max": np.where(rng.random(n) < 0.4, INT32_MAX,
+                        rng.integers(10, 80, n)).astype(np.int32),
+        "low": np.where(rng.random(n) < 0.2, rng.integers(0, 30, n),
+                        0).astype(np.int32),
+        "parent": parent, "active": active,
+        "priority": rng.integers(0, 3, n).astype(np.int32),
+        "frozen": rng.random(n) < 0.1,
+        "throttle_until": np.where(rng.random(n) < 0.2,
+                                   step + rng.integers(-2, 4, n),
+                                   0).astype(np.int32),
+        "peak": (usage + rng.integers(0, 10, n)).astype(np.int32),
+        "prog": rows.astype(np.float32),
+        "prog_id": rng.integers(-1, len(progs) + 1, n).astype(np.int32),
+        "mem_stall": np.where(rng.random(n) < 0.2, INT32_MAX,
+                              rng.integers(0, 9, n)).astype(np.int32),
+    }
+    live = np.flatnonzero(active)
+    return {k: torch.from_numpy(v).to(device) for k, v in st.items()}, live
+
+
+def random_batch(rng, live, m, device):
+    dom = rng.choice(np.concatenate([live, [-1]]), m).astype(np.int32)
+    dom[rng.random(m) < 0.3] = dom[0]            # duplicates in one batch
+    amt = rng.choice([0, 0, 1, 1, 2, 5, 9, 40], m).astype(np.int32)
+    return (torch.from_numpy(dom).to(device),
+            torch.from_numpy(amt).to(device))
+
+
+def table_diff(a: dict, b: dict, keys) -> tuple[bool, float]:
+    """(bit-identical?, max absolute difference) over ``keys``."""
+    same, err = True, 0.0
+    for k in keys:
+        x, y = a[k], b[k]
+        if x.dtype == torch.float32:
+            same &= torch.equal(x.view(torch.int32), y.view(torch.int32))
+        else:
+            same &= torch.equal(x, y)
+        err = max(err, (x.double() - y.double()).abs().max().item())
+    return same, err
+
+
+def check_enforcement(dev, seed: int) -> dict:
+    from repro_torch.core import controller as C
+    from repro_torch.core import progs as P
+    from repro_torch.core import sched as S
+    from repro_torch.kernels import enforcement as K
+
+    keys = ("usage", "peak", "throttle_until", "prog", "mem_stall")
+    charge_err = gate_err = 0.0
+    cases = 0
+    for kind, progs in stock_registries(P, S).items():
+        for case in range(6):
+            rng = np.random.default_rng([seed, case, len(kind)])
+            step = int(rng.integers(3, 40))
+            st, live = random_table(rng, 40, progs, step, case % 2 == 0, P,
+                                    dev)
+            for _ in range(3):       # consecutive steps feed forward
+                dom, amt = random_batch(rng, live, 8, dev)
+                got, gk, sk = K.fused_charge_batch(st, dom, amt, step, progs)
+                want, gp, sp = C._plain_charge_batch(st, dom, amt, step,
+                                                     progs)
+                same, err = table_diff(got, want, keys)
+                same &= torch.equal(gk, gp) and torch.equal(sk, sp)
+                err = max(err, float((gk != gp).sum() + (sk != sp).sum()))
+                if not same:
+                    raise AssertionError(
+                        f"fused charge differs from the plain version "
+                        f"({kind}, case {case}, step {step}): err {err}")
+                charge_err = max(charge_err, err)
+                gate_k = K.fused_slot_gate(got, dom, step + 1, progs)
+                gate_p = C._plain_slot_gate(got, dom, step + 1, progs)
+                if not torch.equal(gate_k, gate_p):
+                    raise AssertionError(f"fused gate differs ({kind})")
+                gate_err = max(gate_err, float((gate_k != gate_p).sum()))
+                st = dict(st, **{k: got[k] for k in keys})
+                step += int(rng.integers(0, 3))
+                cases += 1
+    return {"cases": cases, "charge_max_abs_err": charge_err,
+            "gate_max_abs_err": gate_err}
+
+
+def time_enforcement(dev, seed: int) -> dict:
+    """The two kernels at the engine's shapes: n = 4 * 8 + 8 domains,
+    m = 8 slots, the stock graduated program (P = 4)."""
+    from repro_torch.core import controller as C
+    from repro_torch.core import progs as P
+    from repro_torch.kernels import enforcement as K
+
+    progs = (P.GraduatedThrottleProgram(step_ms=10.0),)
+    rng = np.random.default_rng([seed, 99])
+    n, m = 40, 8
+    st, live = random_table(rng, n, progs, 7, False, P, dev)
+    dom, amt = random_batch(rng, live, m, dev)
+    width = st["prog"].shape[1]
+    ms = cuda_ms(lambda: K.fused_charge_batch(st, dom, amt, 7, progs), 200)
+    plain = cuda_ms(lambda: C._plain_charge_batch(st, dom, amt, 7, progs),
+                    20)
+    gms = cuda_ms(lambda: K.fused_slot_gate(st, dom, 7, progs), 200)
+    gplain = cuda_ms(lambda: C._plain_slot_gate(st, dom, 7, progs), 20)
+    # bytes: every input column read once, every output written once;
+    # operations: about 40 scalar operations per ancestor per slot
+    c_bytes = (2 * m * 4 + 10 * n * 4 + n + n * width * 4
+               + 4 * n * 4 + n * width * 4 + 2 * m)
+    g_bytes = m * 4 + 2 * n * 4 + n + m
+    c_bound = bound_ms(c_bytes, 40 * 4 * m, torch.float32)
+    g_bound = bound_ms(g_bytes, 8 * 4 * m, torch.float32)
+    return {"charge": (ms, plain, c_bound), "gate": (gms, gplain, g_bound)}
+
+
+def check_decode(dev, seed: int) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as A
+
+    B, H, hkv, d, s_max = 8, 24, 8, 128, 2048
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.tensor([1, s_max, 37, 256, 257, 1000, 1555, 2047],
+                           dtype=torch.int32, device=dev)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(B, H, d, generator=g, device=dev).to(dtype)
+        k = torch.randn(B, s_max, hkv, d, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, s_max, hkv, d, generator=g, device=dev).to(dtype)
+        got = A.decode_attention(q, k, v, lengths)
+        want = A.decode_attention_plain(q, k, v, lengths)
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= ATTN_TOL[dtype]:
+            raise AssertionError(f"decode attention {dtype}: err {err}")
+        # a ragged S_max (no multiple of the 256-key split) and an empty row
+        rl = torch.tensor([0, 1, 700, 1001], dtype=torch.int32, device=dev)
+        rq, rk, rv = q[:4], k[:4, :1001].contiguous(), v[:4, :1001].contiguous()
+        r_err = (A.decode_attention(rq, rk, rv, rl).float()
+                 - A.decode_attention_plain(rq, rk, rv, rl).float()
+                 ).abs().max().item()
+        if not r_err <= ATTN_TOL[dtype]:
+            raise AssertionError(f"ragged decode attention {dtype}: {r_err}")
+        name = "f32" if dtype == torch.float32 else "bf16"
+        out[f"{name}_max_abs_err"] = err
+        out[f"{name}_ragged_max_abs_err"] = r_err
+        if dtype is not torch.bfloat16:
+            continue
+        # the main path's dtype: times, bound and the library yardstick
+        ms = cuda_ms(lambda: A.decode_attention(q, k, v, lengths), 200)
+        plain = cuda_ms(lambda: A.decode_attention_plain(q, k, v, lengths),
+                        20)
+        mask = (torch.arange(s_max, device=dev)[None]
+                < lengths[:, None])[:, None, None, :]
+        qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+
+        def library():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+        lib_err = (library()[:, :, 0].float() - want.float()).abs().max()
+        lib_ms = cuda_ms(library, 50)
+        live = int(lengths.sum())
+        n_bytes = 2 * live * hkv * d * 2 + 2 * B * H * d * 2 + B * 4
+        n_ops = 4 * live * H * d
+        out["timing"] = (ms, plain, bound_ms(n_bytes, n_ops, dtype), lib_ms)
+        out["library_max_abs_err"] = lib_err.item()
+    return out
+
+
+# ------------------------------------------------------------------ engine
+
+
+def parity_sessions(S, D):
+    """The three sessions of the JAX package's engine tests."""
+    return [
+        S.Session(sid="hi", tenant="t", priority=D.HIGH,
+                  prompt=list(range(2, 34)),
+                  phases=[S.Phase(8, 96, "test"), S.Phase(8, 64, "git"),
+                          S.Phase(12, 0)]),
+        S.Session(sid="lo1", tenant="t", priority=D.LOW,
+                  prompt=list(range(2, 26)),
+                  phases=[S.Phase(8, 160, "test"), S.Phase(8, 96, "test"),
+                          S.Phase(8, 0)]),
+        S.Session(sid="lo2", tenant="t", priority=D.LOW,
+                  prompt=list(range(2, 26)),
+                  phases=[S.Phase(8, 160, "test"), S.Phase(8, 96, "test"),
+                          S.Phase(8, 0)]),
+    ]
+
+
+def full_sessions(S, D, seed: int) -> list:
+    """8 agent sessions in 2 tenants: ``fg`` runs HIGH-priority sessions,
+    ``bg`` LOW ones.  Prompts of 96-160 tokens, then 2-3 reason/act
+    cycles whose tool results append 64-256 tokens each."""
+    rng = np.random.default_rng(seed)
+    cats = ("test", "git", "python", "build")
+    out = []
+    for i in range(8):
+        tenant, prio = ("fg", D.HIGH) if i % 2 == 0 else ("bg", D.LOW)
+        plen = int(rng.integers(96, 161))
+        phases = [S.Phase(int(rng.integers(8, 25)), int(rng.integers(64, 257)),
+                          cats[int(rng.integers(0, len(cats)))])
+                  for _ in range(int(rng.integers(2, 4)))]
+        phases.append(S.Phase(int(rng.integers(8, 17)), 0))
+        out.append(S.Session(sid=f"s{i}", tenant=tenant, priority=prio,
+                             prompt=[2 + (i * 131 + j) % 1000
+                                     for j in range(plen)],
+                             phases=phases))
+    return out
+
+
+FULL_ENGINE = dict(max_slots=8, s_max=2048, pool_pages=160, page_tokens=16,
+                   mode="inkernel", use_freeze=True,
+                   session_high={"s1": 28, "s3": 28, "s5": 28, "s7": 28})
+
+
+def run_engine(E, cfg, params, sessions, ecfg, device, max_steps=8000,
+               prog=None):
+    eng = E.Engine(cfg, params, ecfg=ecfg, seed=0, device=device)
+    if prog is not None:
+        eng.attach_program(prog)
+    for s in sessions:
+        eng.submit(s)
+    eng.run(max_steps)
+    if not eng.done():
+        raise AssertionError(f"engine on {device} did not finish in "
+                             f"{max_steps} steps")
+    return eng
+
+
+def engine_parity(dev, seed: int) -> dict:
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import domains as D
+    from repro_torch.core import sched as Sched
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import session as S
+
+    cfg = dataclasses.replace(reduced(get_config("llama3.2-3b")),
+                              dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed))
+    gparams = to_device(params, dev)
+    # decode logits, CPU against the card, over a few steps
+    rng = np.random.default_rng(seed)
+    states = {"cpu": M.decode_state(cfg, 4, 64),
+              "cuda": M.decode_state(cfg, 4, 64, dev)}
+    lengths = np.array([0, 3, 17, 40], np.int32)
+    logit_err = 0.0
+    for _ in range(4):
+        tokens = rng.integers(0, cfg.vocab, 4).astype(np.int32)
+        lc, _ = M.decode_step(cfg, params, states["cpu"],
+                              torch.from_numpy(tokens),
+                              torch.from_numpy(lengths))
+        lg, _ = M.decode_step(cfg, gparams, states["cuda"],
+                              torch.from_numpy(tokens).to(dev),
+                              torch.from_numpy(lengths).to(dev))
+        logit_err = max(logit_err, (lg.cpu() - lc).abs().max().item())
+        if not torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)):
+            raise AssertionError("decode argmax differs between CPU and card")
+        lengths = lengths + 1
+    if not logit_err <= 1e-4:
+        raise AssertionError(f"decode logits differ by {logit_err}")
+    common = dict(max_slots=4, s_max=384, pool_pages=40, page_tokens=16,
+                  session_high={"lo1": 12, "lo2": 12})
+    modes = {"inkernel": dict(mode="inkernel", use_freeze=True),
+             "userspace": dict(mode="userspace", use_freeze=False,
+                               use_tool_domains=False, use_intent=False),
+             "inkernel_sched": dict(mode="inkernel", use_freeze=True,
+                                    sched_slots=2)}
+    reports = {}
+    for mode, kw in modes.items():
+        ecfg = E.EngineConfig(**common, **kw)
+        # weighted slots exist only under the weighted-fair program
+        prog = (Sched.WeightedFairProgram() if "sched_slots" in kw
+                else None)
+        rc = run_engine(E, cfg, params, parity_sessions(S, D), ecfg,
+                        "cpu", prog=prog).report()
+        rg = run_engine(E, cfg, gparams, parity_sessions(S, D), ecfg,
+                        dev, prog=prog).report()
+        if rc != rg:
+            raise AssertionError(f"{mode} reports differ:\n{rc}\n{rg}")
+        reports[mode] = rg
+    return {"logits_max_abs_err": logit_err, "reports": reports}
+
+
+def engine_full(dev, seed: int) -> dict:
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import domains as D
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import session as S
+
+    cfg = get_config("llama3.2-3b")
+    ecfg = E.EngineConfig(**FULL_ENGINE)
+    # the control reference: the same sessions at reduced width on the CPU
+    small = dataclasses.replace(reduced(cfg), dtype="float32")
+    ref = run_engine(E, small, M.init_params(
+        small, torch.Generator().manual_seed(seed)),
+        full_sessions(S, D, seed), ecfg, "cpu").report()
+
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    eng = E.Engine(cfg, params, ecfg=ecfg, seed=0, device=dev)
+    sessions = full_sessions(S, D, seed)
+    for s in sessions:
+        eng.submit(s)
+    view = eng.cg.device_view()
+    step_ms, tokens, gated = [], 0, 0
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    while not eng.done():
+        if eng.step_no >= 8000:
+            raise AssertionError("full-width engine did not finish")
+        before = sum(s.length for s in sessions)
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        tokens += max(0, sum(s.length for s in sessions) - before)
+        # the gate on the live table: may each running slot advance next
+        # step?  Checked against the host snapshot's chains.
+        dom = [eng.sessions[sid].dom_idx if sid is not None else -1
+               for sid in eng.slot_session]
+        gate = view.gate(view.state, torch.tensor(dom, dtype=torch.int32,
+                                                  device=dev),
+                         eng.step_no).cpu().tolist()
+        gated += sum(1 for x in gate if not x)
+        if gate != _host_gate(eng.cg.snapshot(), dom, eng.step_no):
+            raise AssertionError(f"gate disagrees with the table at step "
+                                 f"{eng.step_no}")
+    counts = launch_counts()
+    steps = eng.step_no
+    report = eng.report()
+    want = {"fused_charge_batch": steps, "fused_slot_gate": steps,
+            "decode_attention": cfg.n_layers * steps}
+    if counts != want:
+        raise AssertionError(f"launches {counts}, expected {want}")
+    if report != ref:
+        raise AssertionError(f"full-width report differs from the reduced "
+                             f"CPU run:\n{report}\n{ref}")
+    if report["completed"] != len(sessions) or report["freezes"] < 1 \
+            or report["throttle_triggers"] < 1 or report["overshoot_pages"]:
+        raise AssertionError(f"enforcement did not act as planned: {report}")
+    vocab = cfg.padded_vocab
+    if not all(0 <= t < vocab for s in sessions for t in s.out_tokens):
+        raise AssertionError("sampled token out of the vocabulary")
+    # finite logits of the full-width step at ragged lengths
+    state = M.decode_state(cfg, 8, 64, dev)
+    logits, _ = M.decode_step(
+        cfg, params, state, torch.arange(8, device=dev, dtype=torch.int32),
+        torch.tensor([0, 1, 5, 9, 17, 33, 50, 63], dtype=torch.int32,
+                     device=dev))
+    if tuple(logits.shape) != (8, vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("full-width logits are not finite")
+    total_s = sum(step_ms) / 1e3
+    return {"params": n_params, "init_s": init_s, "steps": steps,
+            "step_ms_p50": statistics.median(step_ms),
+            "step_ms_p95": float(np.percentile(step_ms, 95)),
+            "tokens": tokens, "tokens_per_s": tokens / total_s,
+            "gated_slot_steps": gated, "launches": counts,
+            "report": report,
+            "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def profile_step(dev, seed: int, warm: int = 40, steps: int = 30) -> dict:
+    """Where the full-width step's time goes: ``torch.profiler`` over
+    ``steps`` engine steps after ``warm`` steps of the engine_full
+    sessions — wall time, device busy time and the kernels that take
+    it.  Not part of the default run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import domains as D
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import session as S
+
+    cfg = get_config("llama3.2-3b")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    eng = E.Engine(cfg, params, ecfg=E.EngineConfig(**FULL_ENGINE), seed=0,
+                   device=dev)
+    for s in full_sessions(S, D, seed):
+        eng.submit(s)
+    for _ in range(warm):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    return {"steps": steps, "wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "cuda_launches_per_step": sum(e.count for e in kernels) / steps,
+            "top_kernels": [{"name": e.key[:90], "calls_per_step":
+                             e.count / steps, "ms_per_step":
+                             e.self_device_time_total / 1e3 / steps}
+                            for e in top]}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _host_gate(snap: dict, dom: list, step: int) -> list:
+    """The stock programs' gate from the snapshot: no frozen or
+    throttled ancestor within the 4-deep chain."""
+    out = []
+    for d in dom:
+        ok, i = d >= 0, d
+        for _ in range(4):
+            if i < 0 or d < 0:
+                break
+            ok &= not snap["frozen"][i] and snap["throttle_until"][i] <= step
+            i = int(snap["parent"][i])
+        out.append(bool(ok))
+    return out
+
+
+# -------------------------------------------------------------------- main
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default="kernels,engine_parity,engine_full",
+                    help="comma-separated phases to run, of kernels, "
+                         "engine_parity, engine_full and profile (not in "
+                         "the default run); the result line is printed "
+                         "only when kernels and engine_full ran")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        fail("the port's sources (src/repro_torch) are not beside this "
+             "script; run it from the root of a checkout")
+    if not torch.cuda.is_available():
+        fail("torch sees no CUDA device")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    build_s = time.perf_counter() - t0
+    for name, lib in libs.items():
+        log = lib.with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[{name}] {line.strip()}", file=sys.stderr)
+    emit({"phase": "env", "python": sys.version.split()[0],
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "card": card, "device": torch.cuda.get_device_name(0),
+          "device_count": torch.cuda.device_count(), "build_s": build_s,
+          "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
+
+    rows = None
+    if "kernels" in phases:
+        enf = check_enforcement(dev, args.seed)
+        tim = time_enforcement(dev, args.seed)
+        dec = check_decode(dev, args.seed)
+        emit({"phase": "kernels", "card": card, "enforcement": enf,
+              "enforcement_times": tim, "decode_attention": dec})
+        rows = {
+            "fused_charge_batch": dict(
+                source="src/repro_torch/csrc/enforcement.cu",
+                replaces="src/repro/kernels/enforcement.py:149",
+                max_abs_err=enf["charge_max_abs_err"],
+                timing=tim["charge"] + (None,)),
+            "fused_slot_gate": dict(
+                source="src/repro_torch/csrc/enforcement.cu",
+                replaces="src/repro/kernels/enforcement.py:193",
+                max_abs_err=enf["gate_max_abs_err"],
+                timing=tim["gate"] + (None,)),
+            "decode_attention": dict(
+                source="src/repro_torch/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:87",
+                max_abs_err=dec["bf16_max_abs_err"], timing=dec["timing"]),
+        }
+    if "engine_parity" in phases:
+        emit({"phase": "engine_parity", "card": card,
+              **engine_parity(dev, args.seed)})
+    full = None
+    if "engine_full" in phases:
+        full = engine_full(dev, args.seed)
+        emit({"phase": "engine_full", "card": card, **full})
+    if "profile" in phases:
+        emit({"phase": "profile", "card": card,
+              **profile_step(dev, args.seed)})
+    if rows is None or full is None:
+        return
+    table = []
+    for name, r in rows.items():
+        ms, plain, (bnd, by), lib = r["timing"]
+        table.append({"name": name, "route": "cuda", "source": r["source"],
+                      "replaces": r["replaces"],
+                      "launches": full["launches"][name],
+                      "max_abs_err": r["max_abs_err"], "ms": ms,
+                      "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+                      "library_ms": lib})
+    emit({"kernels": table})
+    print(card_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,192 @@
+"""Model configuration schema (port of ``repro/configs/base.py``).
+
+A copy of the JAX package's dataclasses, so the port never imports the
+reference.  The shape/cell table of the reference (a TPU dry-run
+concern) is not carried over.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts sub-config (routed + optional shared experts)."""
+
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    period: int = 1          # MoE FFN on layers where (i % period) == period-1
+    aux_coef: float = 0.01   # load-balance auxiliary loss coefficient
+    router_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2).
+
+    KV is cached as a single ``kv_lora_rank + qk_rope_head_dim`` latent
+    vector per token — the KV cache is ~9x smaller than GQA at kv=128.
+    """
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba (SSD/Mamba-2 chunked form) sub-config."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    chunk: int = 256         # intra-chunk parallel block for the SSD scan
+    n_ssm_heads: int = 8     # SSD head count (d_inner split)
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    slstm_period: int = 8    # sLSTM at layers where (i % period) == period-1
+    proj_factor: float = 2.0
+    conv_kernel: int = 4
+    chunk: int = 256         # mLSTM chunked-parallel block
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str              # dense | moe | hybrid | ssm | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0        # 0 -> d_model // n_heads
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
+    # hybrid interleave: attention on layers where (i % attn_period) == attn_offset,
+    # all other layers are Mamba blocks.  attn_period=1 -> all-attention.
+    attn_period: int = 1
+    attn_offset: int = 0
+    encoder_only: bool = False
+    frontend: Optional[str] = None   # None | "vision" | "audio"
+    n_frontend_tokens: int = 0       # patch/frame embeddings supplied by input_specs
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    # training-time knobs
+    remat: bool = True
+    schedule: str = "cosine"         # cosine | wsd (minicpm)
+    # scanning: layers are grouped into repeated groups of `group_size` layers;
+    # the (attn/mamba/moe) pattern must be periodic in group_size.
+    group_size: int = 1
+    source: str = ""                 # provenance note [arXiv/hf; tier]
+
+    # ---- derived ----
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return _round_up(self.vocab, 256)
+
+    @property
+    def n_groups(self) -> int:
+        assert self.n_layers % self.group_size == 0, (self.name, self.n_layers, self.group_size)
+        return self.n_layers // self.group_size
+
+    def layer_kinds(self) -> list[str]:
+        """Sequence-mixer kind for each layer inside one scan group."""
+        kinds = []
+        for i in range(self.group_size):
+            if self.xlstm is not None:
+                kinds.append("slstm" if (i % self.xlstm.slstm_period) == self.xlstm.slstm_period - 1
+                             else "mlstm")
+            elif self.ssm is not None and self.attn_period > 1:
+                kinds.append("attn" if (i % self.attn_period) == self.attn_offset else "mamba")
+            elif self.ssm is not None:
+                kinds.append("mamba")
+            else:
+                kinds.append("attn")
+        return kinds
+
+    def ffn_kinds(self) -> list[str]:
+        """FFN kind ('dense' | 'moe' | 'none') for each layer in one group."""
+        kinds = []
+        for i in range(self.group_size):
+            if self.d_ff == 0:
+                kinds.append("none")
+            elif self.moe is not None and (i % self.moe.period) == self.moe.period - 1:
+                kinds.append("moe")
+            else:
+                kinds.append("dense")
+        return kinds
+
+    @property
+    def subquadratic(self) -> bool:
+        """True when per-token decode state is O(1) or near-O(1) in context."""
+        return self.family in ("hybrid", "ssm")
+
+    # ---- parameter counting (for MODEL_FLOPS = 6*N*D) ----
+    def param_count(self, active_only: bool = False) -> int:
+        """Total (or MoE-active) parameter count, analytic."""
+        d, hd = self.d_model, self.head_dim_
+        n = 0
+        # embeddings (+ untied head)
+        n += self.padded_vocab * d
+        if not self.tie_embeddings and not self.encoder_only:
+            n += self.padded_vocab * d
+        if self.encoder_only:
+            n += d * self.padded_vocab  # classifier head
+        kinds, ffns = self.layer_kinds(), self.ffn_kinds()
+        per_group = 0
+        for kind, ffn in zip(kinds, ffns):
+            if kind == "attn":
+                if self.mla is not None:
+                    m = self.mla
+                    per_group += d * m.q_lora_rank + m.q_lora_rank * self.n_heads * (
+                        m.qk_nope_head_dim + m.qk_rope_head_dim)
+                    per_group += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    per_group += m.kv_lora_rank * self.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+                    per_group += self.n_heads * m.v_head_dim * d
+                else:
+                    per_group += d * self.n_heads * hd          # Q
+                    per_group += 2 * d * self.n_kv_heads * hd   # K, V
+                    per_group += self.n_heads * hd * d          # O
+            elif kind == "mamba":
+                s = self.ssm
+                d_in = s.expand * d
+                per_group += d * 2 * d_in                       # in_proj (x, z)
+                per_group += d_in * s.d_conv                    # conv
+                per_group += d_in * 2 * s.d_state               # B, C proj (per SSD head shared)
+                per_group += d_in + d_in                        # dt proj + A_log/D
+                per_group += d_in * d                           # out_proj
+            elif kind in ("mlstm", "slstm"):
+                x = self.xlstm
+                d_in = int(x.proj_factor * d)
+                per_group += d * 2 * d_in + d_in * d            # up (x,z) + down
+                per_group += 3 * d_in * d_in // 4               # q,k,v block-diag-ish
+                per_group += 3 * d_in                           # gates
+            if ffn == "dense":
+                per_group += 3 * d * self.d_ff                  # SwiGLU
+            elif ffn == "moe":
+                m = self.moe
+                n_routed = m.top_k if active_only else m.n_experts
+                per_group += 3 * d * m.d_ff_expert * (n_routed + m.n_shared)
+                per_group += d * m.n_experts                    # router
+        n += per_group * self.n_groups
+        return n

@@ -1,0 +1,31 @@
+"""Hand-written CUDA kernels of the port and their plain torch versions.
+
+  enforcement       — fused hierarchical charge and slot gate
+                      (csrc/enforcement.cu)
+  decode_attention  — one-token GQA flash-decoding (csrc/decode_attention.cu)
+  ref               — plain torch oracles
+  ops               — the per-op entry points the models call
+
+Each wrapper counts the launches of its kernel in a ``launches``
+attribute; ``launch_counts``/``reset_launch_counts`` read and zero them.
+"""
+from __future__ import annotations
+
+
+def _wrappers() -> dict:
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.enforcement import (fused_charge_batch,
+                                                 fused_slot_gate)
+    return {"fused_charge_batch": fused_charge_batch,
+            "fused_slot_gate": fused_slot_gate,
+            "decode_attention": decode_attention}
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0

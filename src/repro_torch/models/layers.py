@@ -1,0 +1,64 @@
+"""Shared layers: RMSNorm, RoPE, SwiGLU MLP, embedding, LM head.
+
+Port of ``repro/models/layers.py``.  The matrix products the JAX package
+leaves to XLA stay plain ``@`` products here.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+
+def rmsnorm(p, x, eps: float = 1e-5):
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * p["scale"].float()).to(x.dtype)
+
+
+def rope_table(seq_len: int, head_dim: int, theta: float, positions=None,
+               device=None):
+    """(S, hd/2) cos/sin tables in f32; ``positions`` overrides arange."""
+    if positions is None:
+        positions = torch.arange(seq_len, dtype=torch.float32, device=device)
+    else:
+        positions = positions.float()
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    # a Python-float base: a device tensor built from ``theta`` here
+    # would be a host-to-device copy, which waits for the stream
+    freqs = theta ** exps
+    ang = positions[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., S, H, hd); cos/sin: (S, hd/2) or (B, S, hd/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    if cos.dim() == 2:
+        c, s = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        c, s = cos[:, :, None, :], sin[:, :, None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp(p, x):
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ p["w_down"]
+
+
+def embed_tokens(cfg: ModelConfig, p, tokens):
+    """Clip gather, as the reference's ``.at[tokens].get(mode="clip")``."""
+    return p["tok"][torch.clamp(tokens, 0, p["tok"].shape[0] - 1).long()]
+
+
+def lm_head(cfg: ModelConfig, p, x):
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    return (x @ w).float()

@@ -1,0 +1,527 @@
+"""Multi-tenant continuous-batching engine with AgentCgroup enforcement.
+
+Port of ``repro/serving/engine.py``.  Every engine step advances all
+active slots by one token (prompt and tool-result tokens are force-fed
+one per step, so every context-page allocation flows through the same
+charge path a decoded token uses).  The controller runs in one of:
+
+  * ``inkernel``  — the AgentCgroup design: ``device_view().charge`` runs
+    inside the step, on the device (the fused charge kernel on a card);
+    a slot whose page charge is denied (hard limit, freeze, throttle)
+    does not advance this same step.
+  * ``userspace`` — the baseline the paper's §4.2 criticizes: a daemon
+    polls usage and gates slots one or more steps late.
+  * ``nolimit``   — accounting only.
+
+Host-side daemon work (lifecycle only, as in the paper): admission,
+per-tool-call child domains with intent-hint highs, freeze/thaw with
+state offload, downward feedback.  This slice runs the synchronous
+device-table backend; the async daemon, the sharded backend and the
+adaptive retuner raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import domains as D
+from repro_torch.core import pressure as PSI
+from repro_torch.core.cgroup import AgentCgroup, DeviceTableBackend, DomainSpec
+from repro_torch.core.controller import ControllerConfig, resolve_device
+from repro_torch.core.events import Ev, EventLog
+from repro_torch.core.intent import Hint
+from repro_torch.core.progs import PolicyProgram
+from repro_torch.models import model as M
+from repro_torch.serving.kvcache import PageAccountant, SlotCaches
+from repro_torch.serving.sampling import sample
+from repro_torch.serving.session import Session, SState
+
+_NOT_PORTED = {
+    "async": "backend='async' (the async lifecycle daemon) is not ported "
+             "yet: ROADMAP Queue 1 item 4",
+    "sharded": "backend='sharded' (the sharded table) is not ported yet: "
+               "ROADMAP Queue 1 item 6",
+}
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    max_slots: int = 8
+    s_max: int = 512
+    pool_pages: int = 256                # KV pool
+    page_tokens: int = 16
+    mode: str = "inkernel"               # inkernel | userspace | nolimit
+    backend: str = "device"              # device (async, sharded: later)
+    ctrl: ControllerConfig = ControllerConfig(step_ms=10.0)
+    temperature: float = 0.0
+    # daemon knobs
+    freeze_threshold: float = 0.97
+    thaw_threshold: float = 0.80
+    feedback_patience_steps: int = 40
+    evict_patience_steps: int = 400
+    userspace_poll_steps: int = 8        # PSI-poll analogue
+    userspace_react_steps: int = 4       # daemon decision+write latency
+    use_intent: bool = True
+    use_tool_domains: bool = True
+    use_freeze: bool = True              # graceful-degradation step 2
+    # weighted CPU scheduler (cpu.weight / cpu.max): at most
+    # ``sched_slots`` weighted slots advance per step; None keeps the
+    # binary slot gate
+    sched_slots: Optional[int] = None
+    # closed-loop adaptive retuner (not ported yet: must stay None)
+    adaptive: Optional[object] = None
+    # intent hints in engine pages (LOW/MEDIUM/HIGH priority of Hint enum)
+    intent_high_pages: Optional[dict] = None
+    session_high: Optional[dict] = None  # sid -> memory.high (pages)
+    max_steps: int = 20_000
+
+
+@dataclass
+class EngineMetrics:
+    root_usage: list = field(default_factory=list)
+    overshoot_pages: int = 0             # max pages over pool budget
+    session_overshoot_pages: int = 0     # max pages over any session high
+    throttle_triggers: int = 0
+    n_feedbacks: int = 0
+    n_freezes: int = 0
+    n_thaws: int = 0
+    n_evictions: int = 0
+    steps: int = 0
+
+
+class Engine:
+    def __init__(self, cfg: ModelConfig, params, *,
+                 ecfg: EngineConfig = EngineConfig(), seed: int = 0,
+                 device="cuda"):
+        if ecfg.backend in _NOT_PORTED:
+            raise NotImplementedError(_NOT_PORTED[ecfg.backend])
+        if ecfg.backend != "device":
+            raise ValueError(f"unknown backend {ecfg.backend!r}")
+        if ecfg.adaptive is not None:
+            raise NotImplementedError(
+                "adaptive= (the closed-loop pressure retuner) is not ported "
+                "yet: ROADMAP Queue 1 item 4")
+        if ecfg.mode not in ("inkernel", "userspace", "nolimit"):
+            raise ValueError(f"unknown mode {ecfg.mode!r}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.ecfg = ecfg
+        self.caches = SlotCaches(cfg, ecfg.max_slots, ecfg.s_max,
+                                 self.device)
+        self.accountant = PageAccountant(ecfg.page_tokens)
+        self.cg = AgentCgroup(DeviceTableBackend(
+            ecfg.pool_pages, n_domains=4 * ecfg.max_slots + 8, cfg=ecfg.ctrl,
+            device=self.device))
+        # the engine's facade clock counts steps (set_time(step_no)), not
+        # ms: PSI windows converted from ms to steps via step_ms
+        self.cg.pressure_clock(
+            step_quantum=1.0,
+            windows=(PSI.AVG10_MS / ecfg.ctrl.step_ms,
+                     PSI.AVG60_MS / ecfg.ctrl.step_ms))
+        self.pool_capacity = ecfg.pool_pages
+        self._view = self.cg.device_view()
+        self.log = EventLog()
+        self.metrics = EngineMetrics()
+        self.sessions: dict[str, Session] = {}
+        self.waiting: list[str] = []
+        self.slot_session: list[Optional[str]] = [None] * ecfg.max_slots
+        self.step_no = 0
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self._host_gate = np.ones(ecfg.max_slots, bool)
+        self._pending_gate = None
+        self._ungate_step = None
+        self._lease: dict[str, object] = {}      # sid -> open tool Lease
+        self._tool_seq = 0
+        self._prev_throttle = np.zeros(self.cg.backend.n_domains, np.int64)
+
+    # ---------------------------------------------------- policy programs
+
+    def attach_program(self, prog: PolicyProgram, path: str = "/") -> None:
+        """Swap or compose in-step enforcement programs (BPF object
+        load): the next step runs the new decision code.  A root attach
+        replaces the whole registry; a subtree attach composes."""
+        self.cg.attach(path, prog)
+        self._view = self.cg.device_view()
+
+    def update_params(self, path: str = "/", **kv) -> None:
+        """Retune the live program mid-run (BPF map write)."""
+        self.cg.update_params(path, **kv)
+
+    # ------------------------------------------------------------ admission
+
+    def submit(self, session: Session) -> None:
+        self.sessions[session.sid] = session
+        tenant_path = f"/{session.tenant}"
+        if not self.cg.exists(tenant_path):
+            self.cg.mkdir(tenant_path)
+        self.waiting.append(session.sid)
+
+    def _try_admit(self) -> None:
+        still = []
+        for sid in self.waiting:
+            s = self.sessions[sid]
+            slot = self.caches.alloc_slot()
+            if slot is None:
+                still.append(sid)
+                continue
+            s.slot = slot
+            low = 0
+            if s.priority == D.HIGH:
+                low = self.ecfg.pool_pages            # below_low protection
+            high = (self.ecfg.session_high or {}).get(s.sid, D.UNLIMITED)
+            s.dom_idx = self.cg.mkdir(s.domain, DomainSpec(
+                priority=s.priority, low=low, high=high))
+            s.t_admit = self.step_no
+            self.slot_session[slot] = sid
+            s.start()
+            self.log.emit(self.step_no, Ev.ADMIT, s.domain)
+        self.waiting = still
+
+    # --------------------------------------------------- tool-call domains
+
+    def _sync_tool_domain(self, s: Session) -> None:
+        """Ephemeral child domain per tool-result burst (bash-wrapper
+        analogue); intent hints set its memory.high."""
+        if not self.ecfg.use_tool_domains:
+            return
+        in_burst = bool(s.feed_queue) and s.length > len(s.prompt)
+        has = s.sid in self._lease
+        if in_burst and not has:
+            self._tool_seq += 1
+            high = D.UNLIMITED
+            hint = None
+            if self.ecfg.use_intent:
+                table = self.ecfg.intent_high_pages or {
+                    Hint.LOW: 4, Hint.MEDIUM: 10, Hint.HIGH: 24}
+                hint = s.declared_hint()
+                high = table.get(hint, table[Hint.MEDIUM])
+            lease = self.cg.intent.declare(f"tool_{self._tool_seq}", hint,
+                                           parent=s.domain,
+                                           priority=s.priority, high=high)
+            self._lease[s.sid] = lease
+            s.dom_idx = self.cg.handle(lease.path)
+        elif not in_burst and has:
+            # context pages persist: lease close moves the residual
+            # charge up to the session
+            self._lease.pop(s.sid).close()
+            s.dom_idx = self.cg.handle(s.domain)
+
+    # -------------------------------------------------------------- daemon
+
+    def _userspace_policy(self) -> None:
+        """User-space throttle daemon: the same graduated-delay policy the
+        in-kernel path applies, computed from telemetry polled every
+        ``userspace_poll_steps`` and applied ``userspace_react_steps``
+        late — the §4.2 responsiveness gap."""
+        e = self.ecfg
+        if self.step_no % e.userspace_poll_steps == 0:
+            snap = self.cg.snapshot()
+            usage, high, maxl = snap["usage"], snap["high"], snap["max"]
+            parent = snap["parent"]
+            progs = self.cg.programs
+            ids = snap["prog_id"]
+            decisions = {}
+            for slot, sid in enumerate(self.slot_session):
+                if sid is None:
+                    continue
+                s = self.sessions[sid]
+                chain = [s.dom_idx]
+                while parent[chain[-1]] >= 0:
+                    chain.append(int(parent[chain[-1]]))
+                over = max((usage[i] - high[i]) / max(high[i], 1)
+                           for i in chain)
+                hard = any(usage[i] >= maxl[i] for i in chain)
+                if over > 0 or hard:
+                    # the session's own program's delay curve, on its
+                    # live param row — just polled late
+                    pr = progs[min(int(ids[s.dom_idx]), len(progs) - 1)]
+                    dly_ms = float(pr.delay_ms(
+                        snap["params"][s.dom_idx], max(float(over), 0.0)))
+                    dly = int(np.ceil(dly_ms / pr.step_ms)) or 1
+                    decisions[slot] = (self.step_no + e.userspace_react_steps
+                                       + dly)
+            self._pending_gate = (self.step_no + e.userspace_react_steps,
+                                  decisions)
+
+    def _apply_pending_gate(self) -> None:
+        pg = self._pending_gate
+        if pg is not None and self.step_no >= pg[0]:
+            if self._ungate_step is None:
+                self._ungate_step = np.zeros(self.ecfg.max_slots)
+            for slot, until in pg[1].items():
+                self._ungate_step[slot] = max(self._ungate_step[slot], until)
+                self.metrics.throttle_triggers += 1
+            self._pending_gate = None
+        if self._ungate_step is not None:
+            self._host_gate = self._ungate_step <= self.step_no
+
+    def _daemon(self) -> None:
+        e = self.ecfg
+        snap = self.cg.snapshot()
+        root_usage = int(snap["root_usage"])
+        self.metrics.root_usage.append(root_usage)
+        self.metrics.overshoot_pages = max(
+            self.metrics.overshoot_pages, root_usage - self.pool_capacity)
+        usage, high = snap["usage"], snap["high"]
+        lim = high < D.UNLIMITED
+        if lim.any():
+            self.metrics.session_overshoot_pages = max(
+                self.metrics.session_overshoot_pages,
+                int((usage[lim] - high[lim]).max()))
+        # freeze under extreme pressure (graceful degradation step 2)
+        if e.use_freeze and root_usage > e.freeze_threshold * self.pool_capacity:
+            cands = [self.sessions[sid] for sid in self.slot_session
+                     if sid is not None
+                     and self.sessions[sid].state is SState.RUNNING
+                     and self.sessions[sid].priority == D.LOW]
+            if cands:
+                victim = max(cands, key=lambda s: s.pages)
+                self._freeze(victim)
+        else:
+            frozen = [s for s in self.sessions.values()
+                      if s.state is SState.FROZEN]
+            if frozen and self.caches.n_free > 0:
+                cand = min(frozen, key=lambda s: s.pages)
+                if (root_usage + cand.pages
+                        < e.thaw_threshold * self.pool_capacity):
+                    self._thaw(cand)
+        self._try_admit()
+
+    def _freeze(self, s: Session) -> None:
+        if s.sid in self._lease:
+            self._lease.pop(s.sid).close()     # residual moves to session
+        self.caches.freeze_slot(s.sid, s.slot, pages=s.pages,
+                                meta={"length": s.length},
+                                now=self.step_no)
+        self.slot_session[s.slot] = None
+        # release pages (offloaded to host) + freeze the domain
+        self.cg.uncharge(s.domain, s.pages)
+        self.cg.freeze(s.domain)
+        s.slot = -1
+        s.state = SState.FROZEN
+        s.n_freezes += 1
+        self.metrics.n_freezes += 1
+        self.log.emit(self.step_no, Ev.FREEZE, s.domain, pages=s.pages)
+
+    def _thaw(self, s: Session) -> None:
+        slot, meta = self.caches.thaw_slot(s.sid)
+        self.cg.thaw(s.domain)
+        self.cg.charge_unchecked(s.domain, s.pages)   # thaw re-charge
+        s.slot = slot
+        s.dom_idx = self.cg.handle(s.domain)
+        self.slot_session[slot] = s.sid
+        s.state = SState.RUNNING
+        self.metrics.n_thaws += 1
+        self.log.emit(self.step_no, Ev.THAW, s.domain)
+
+    def _finish(self, s: Session) -> None:
+        if s.sid in self._lease:
+            self._lease.pop(s.sid).close()
+        self.cg.uncharge(s.domain, s.pages)
+        self.cg.rmdir(s.domain, transfer_residual=False)
+        self.caches.free_slot(s.slot)
+        self.slot_session[s.slot] = None
+        s.slot = -1
+        s.state = SState.DONE
+        s.t_done = self.step_no
+        self.log.emit(self.step_no, Ev.DONE, s.domain)
+
+    def _evict(self, s: Session) -> None:
+        """Last resort — the paper's triple-penalty path."""
+        if s.sid in self._lease:
+            self._lease.pop(s.sid).close()
+        self.cg.uncharge(s.domain, s.pages)
+        self.cg.rmdir(s.domain, transfer_residual=False)
+        if s.slot >= 0:
+            self.caches.free_slot(s.slot)
+            self.slot_session[s.slot] = None
+        s.state = SState.EVICTED
+        s.t_done = self.step_no
+        self.metrics.n_evictions += 1
+        self.log.emit(self.step_no, Ev.EVICT, s.domain)
+
+    # ----------------------------------------------------------------- step
+
+    def _device_step(self, tokens, lengths, dom, amt, host_gate, inkernel):
+        """The in-step program: schedule, charge (or the stale host gate),
+        decode one token, sample, merge the state under the gate."""
+        e = self.ecfg
+        view = self._view
+        ctrl = view.state
+        if e.sched_slots is not None:
+            # a slot the weighted scheduler defers does not advance this
+            # step (its charge never reaches the memory controller)
+            cost = (dom >= 0).to(torch.int32)
+            ctrl, advance = view.schedule(ctrl, dom, cost, self.step_no,
+                                          e.sched_slots)
+            dom = torch.where(advance, dom, torch.full_like(dom, -1))
+        if inkernel:
+            # in-step enforcement: charge + gate inside the same step
+            ctrl, granted, stalled = view.charge(ctrl, dom, amt, self.step_no)
+            gate = granted
+        else:
+            # user-space baseline: the (stale) host gate decides; usage is
+            # charged after the fact, so bursts overshoot the budget
+            gate = host_gate & (dom >= 0)
+            ctrl = view.account(ctrl, torch.where(gate, dom,
+                                                  torch.full_like(dom, -1)),
+                                amt)
+            granted, stalled = gate, (dom >= 0) & ~gate
+        # The gated merge, in place.  decode_step writes only row
+        # lengths[b] of each layer's cache; those rows are saved before
+        # the write and put back for slots the gate did not grant — the
+        # reference's where() over the whole cache, without copying it.
+        state = self.caches.state
+        bidx = torch.arange(e.max_slots, device=self.device)
+        rows = lengths.long()
+        saved = [{k: t[:, bidx, rows] for k, t in pos.items()}
+                 for pos in state]
+        logits, _ = M.decode_step(self.cfg, self.params, state, tokens,
+                                  lengths)
+        keep = gate[None, :, None, None]
+        for pos, old in zip(state, saved):
+            for k, t in pos.items():
+                t[:, bidx, rows] = torch.where(keep, t[:, bidx, rows], old[k])
+        nxt = sample(logits, self.generator, temperature=e.temperature)
+        nxt = torch.where(gate, nxt, tokens)
+        return nxt, ctrl, granted, stalled
+
+    def step(self) -> None:
+        e = self.ecfg
+        self.cg.set_time(self.step_no)
+        if e.mode == "userspace":
+            self._userspace_policy()
+            self._apply_pending_gate()
+        inputs = np.zeros((4, e.max_slots), np.int32)  # tokens/lengths/dom/amt
+        inputs[2] = -1
+        for slot, sid in enumerate(self.slot_session):
+            if sid is None:
+                continue
+            s = self.sessions[sid]
+            if s.state is not SState.RUNNING:
+                continue
+            self._sync_tool_domain(s)
+            inputs[0, slot] = s.next_input() % self.cfg.padded_vocab
+            inputs[1, slot] = min(s.length, e.s_max - 1)
+            inputs[2, slot] = s.dom_idx
+            inputs[3, slot] = self.accountant.crossing(s.length)
+        dev_in = torch.from_numpy(inputs).to(self.device)
+        host_gate = torch.from_numpy(self._host_gate).to(self.device)
+        nxt, new_ctrl, granted, _ = self._device_step(
+            dev_in[0], dev_in[1], dev_in[2], dev_in[3], host_gate,
+            e.mode == "inkernel")
+        self._view.commit(new_ctrl)
+        nxt = nxt.cpu().numpy()
+        granted = granted.cpu().numpy()
+        amt = inputs[3]
+        # throttle-trigger accounting (memcg_bpf_ops delay counter)
+        tu = self._view.state["throttle_until"].cpu().numpy().astype(np.int64)
+        self.metrics.throttle_triggers += int(np.sum(tu > self._prev_throttle))
+        self._prev_throttle = np.maximum(tu, self._prev_throttle)
+
+        for slot, sid in enumerate(self.slot_session):
+            if sid is None:
+                continue
+            s = self.sessions[sid]
+            if s.state is not SState.RUNNING:
+                continue
+            if granted[slot]:
+                if s.stall_started is not None:
+                    s.alloc_latencies_steps.append(
+                        self.step_no - s.stall_started)
+                    s.stall_started = None
+                elif amt[slot]:
+                    s.alloc_latencies_steps.append(0)
+                s.pages += int(amt[slot])
+                s.advance(int(nxt[slot]))
+                if s.finished or s.length >= e.s_max - 1:
+                    self._finish(s)
+            else:
+                s.stall_steps += 1
+                if s.stall_started is None:
+                    s.stall_started = self.step_no
+                stall = self.step_no - s.stall_started
+                # graduated feedback: first shrink the pending append;
+                # if the session is wedged against the pool wall, roll
+                # the whole tool call back so its pages free and a
+                # smaller retry fits
+                if (stall > 0 and stall % e.feedback_patience_steps == 0
+                        and s.feed_queue):
+                    fb = self.cg.intent.feedback(
+                        s.domain, "throttled", peak=s.pages,
+                        limit=int(self.cg.read(self.cg.path_of(s.dom_idx),
+                                               "memory.high")))
+                    if (stall >= 2 * e.feedback_patience_steps
+                            and s.burst_start_len >= 0):
+                        freed = s.rollback_burst(scale=0.5)
+                        if freed:
+                            self.cg.uncharge(s.dom_idx, freed)
+                        s.feedbacks.append(fb)
+                        self.log.emit(self.step_no, Ev.FEEDBACK, s.domain,
+                                      action="rollback", freed=freed)
+                    else:
+                        s.apply_feedback(fb, scale=0.5)
+                        self.log.emit(self.step_no, Ev.FEEDBACK, s.domain,
+                                      action="shrink")
+                    self.metrics.n_feedbacks += 1
+                elif stall > e.evict_patience_steps:
+                    self._evict(s)
+        self._daemon()
+        self.step_no += 1
+        self.metrics.steps = self.step_no
+
+    def run(self, max_steps: Optional[int] = None) -> EngineMetrics:
+        limit = max_steps or self.ecfg.max_steps
+        for _ in range(limit):
+            if self.done():
+                break
+            self.step()
+        return self.metrics
+
+    def done(self) -> bool:
+        """Every submitted session has finished or been evicted."""
+        return not self.waiting and all(
+            s.state in (SState.DONE, SState.EVICTED)
+            for s in self.sessions.values())
+
+    # -------------------------------------------------------------- report
+
+    def report(self) -> dict:
+        e = self.ecfg
+        done = [s for s in self.sessions.values() if s.state is SState.DONE]
+        evicted = [s for s in self.sessions.values()
+                   if s.state is SState.EVICTED]
+        lat_by_prio: dict[int, list] = {}
+        for s in self.sessions.values():
+            lat_by_prio.setdefault(s.priority, []).extend(
+                x * e.ctrl.step_ms for x in s.alloc_latencies_steps)
+
+        def pct(xs, p):
+            if not xs:
+                return 0.0
+            xs = sorted(xs)
+            return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
+
+        return {
+            "mode": e.mode,
+            "completed": len(done),
+            "evicted": len(evicted),
+            "survival": len(done) / max(len(self.sessions), 1),
+            "steps": self.step_no,
+            "high_p50_ms": pct(lat_by_prio.get(D.HIGH, []), 50),
+            "high_p95_ms": pct(lat_by_prio.get(D.HIGH, []), 95),
+            "low_p95_ms": pct(lat_by_prio.get(D.LOW, []), 95),
+            "throttle_triggers": self.metrics.throttle_triggers,
+            "freezes": self.metrics.n_freezes,
+            "thaws": self.metrics.n_thaws,
+            "feedbacks": self.metrics.n_feedbacks,
+            "overshoot_pages": self.metrics.overshoot_pages,
+            "session_overshoot_pages": self.metrics.session_overshoot_pages,
+            "peak_pool_pages": max(self.metrics.root_usage, default=0),
+        }

@@ -1,0 +1,123 @@
+"""The port's serving engine against the JAX engine: the sessions of
+``tests/test_engine.py`` on the reduced f32 ``llama3.2-3b`` with the
+JAX weights carried over, in ``inkernel`` mode (with per-session
+``memory.high``), in ``userspace`` mode, and in ``inkernel`` mode under
+the weighted step scheduler (``sched_slots``).  ``Engine.report()`` follows
+session phases, not token values, and must be field-identical.  The
+JAX reports are computed once per module."""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import domains as JD
+from repro.core import sched as JSched
+from repro.serving import session as JS
+from repro.serving.engine import Engine as JEngine
+from repro.serving.engine import EngineConfig as JEngineConfig
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.configs import reduced as t_reduced
+from repro_torch.core import domains as TD
+from repro_torch.core import sched as TSched
+from repro_torch.core.cgroup import DeviceTableBackend
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.models import model as TM
+from repro_torch.serving import session as TS
+from repro_torch.serving.engine import Engine as TEngine
+from repro_torch.serving.engine import EngineConfig as TEngineConfig
+
+COMMON = dict(max_slots=4, s_max=384, pool_pages=40, page_tokens=16)
+MODES = {
+    "inkernel": dict(mode="inkernel", use_freeze=True,
+                     session_high={"lo1": 12, "lo2": 12}),
+    "userspace": dict(mode="userspace", use_freeze=False,
+                      use_tool_domains=False, use_intent=False,
+                      session_high={"lo1": 12, "lo2": 12}),
+    "inkernel_sched": dict(mode="inkernel", use_freeze=True, sched_slots=2),
+}
+# modes whose engine runs the weighted-fair program (weighted slots only
+# exist under it: the stock program bypasses the scheduler)
+WEIGHTED = {"inkernel_sched"}
+
+
+def sessions(S, D):
+    """The three sessions of ``tests/test_engine.py``, in either package."""
+    return [
+        S.Session(sid="hi", tenant="t", priority=D.HIGH,
+                  prompt=list(range(2, 34)),
+                  phases=[S.Phase(8, 96, "test"), S.Phase(8, 64, "git"),
+                          S.Phase(12, 0)]),
+        S.Session(sid="lo1", tenant="t", priority=D.LOW,
+                  prompt=list(range(2, 26)),
+                  phases=[S.Phase(8, 160, "test"), S.Phase(8, 96, "test"),
+                          S.Phase(8, 0)]),
+        S.Session(sid="lo2", tenant="t", priority=D.LOW,
+                  prompt=list(range(2, 26)),
+                  phases=[S.Phase(8, 160, "test"), S.Phase(8, 96, "test"),
+                          S.Phase(8, 0)]),
+    ]
+
+
+@pytest.fixture(scope="module")
+def jax_reports(tiny_llama):
+    cfg, params = tiny_llama
+    out = {}
+    for name, kw in MODES.items():
+        eng = JEngine(cfg, params, ecfg=JEngineConfig(**COMMON, **kw), seed=0)
+        if name in WEIGHTED:
+            eng.attach_program(JSched.WeightedFairProgram())
+        for s in sessions(JS, JD):
+            eng.submit(s)
+        eng.run(6000)
+        out[name] = eng.report()
+    return out
+
+
+@pytest.fixture(scope="module")
+def torch_model(tiny_llama):
+    _, params = tiny_llama
+    tcfg = dataclasses.replace(t_reduced(t_get_config("llama3.2-3b")),
+                               dtype="float32")
+    return tcfg, TM.params_from_jax(jax.tree.map(np.asarray, params), tcfg)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_report_field_identical(jax_reports, torch_model, mode):
+    tcfg, tparams = torch_model
+    eng = TEngine(tcfg, tparams, ecfg=TEngineConfig(**COMMON, **MODES[mode]),
+                  seed=0, device="cpu")
+    if mode in WEIGHTED:
+        eng.attach_program(TSched.WeightedFairProgram())
+    for s in sessions(TS, TD):
+        eng.submit(s)
+    reset_launch_counts()
+    eng.run(6000)
+    assert eng.report() == jax_reports[mode]
+    # the CPU run takes the plain versions: no kernel launched
+    assert set(launch_counts().values()) == {0}
+
+
+def test_entry_points_default_to_the_card():
+    """Without ``device=`` the entry points ask for CUDA; where torch sees
+    no card they raise instead of quietly running on the CPU."""
+    tcfg = t_reduced(t_get_config("llama3.2-3b"))
+    if torch.cuda.is_available():
+        assert DeviceTableBackend(16).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceTableBackend(16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TEngine(tcfg, {}, ecfg=TEngineConfig(**COMMON))
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(backend="async"), "Queue 1 item 4"),
+    (dict(backend="sharded"), "Queue 1 item 6"),
+    (dict(adaptive=object()), "Queue 1 item 4"),
+])
+def test_unported_options_raise(kw, item):
+    tcfg = t_reduced(t_get_config("llama3.2-3b"))
+    with pytest.raises(NotImplementedError, match=item):
+        TEngine(tcfg, {}, ecfg=TEngineConfig(**COMMON, **kw), device="cpu")
