@@ -9,11 +9,17 @@ Phases, one JSON line each on standard output:
                  ``src/repro_torch/csrc/*.cu`` built by ``nvcc`` into
                  ``build/kernels``, one compiler per source, in parallel).
   kernels        each CUDA kernel against its plain PyTorch version on the
-                 card, at the shapes the serving step gives it: the fused
-                 charge and gate bit-exact over randomized tables and every
-                 stock program; decode attention within 2e-5 (f32) and 2e-2
+                 card, at the shapes its path gives it: the fused charge
+                 and gate bit-exact over randomized tables and every stock
+                 program; decode attention within 2e-5 (f32) and 2e-2
                  (bf16) at B=8, H=24, Hkv=8, d=128, S_max=2048 with ragged
-                 lengths, plus a ragged S_max.  Times from CUDA events.
+                 lengths, plus a ragged S_max; the flash forward and
+                 backward at the training shape (B=1, S=4096, H=24, Hkv=8,
+                 d=128, bf16, causal) and at a ragged S=1000, non-causal and
+                 causal, f32 and bf16: every element of out, lse, dq, dk
+                 and dv within 2e-5 (1 + |b|) in f32 and 2e-2 (rms(b) +
+                 |b|) in bf16, and in bf16 within 1e-2 norm-relative, b
+                 being the plain version's value.  Times from CUDA events.
   engine_parity  the reduced f32 llama3.2-3b on the CPU and on the card:
                  decode logits within 1e-4, and the engine's ``report()``
                  identical in inkernel and userspace modes and under the
@@ -25,9 +31,21 @@ Phases, one JSON line each on standard output:
                  report must equal the same sessions' report on the CPU at
                  reduced width (the control trajectory follows session
                  phases, not token values).
+  train_parity   the reduced f32 llama3.2-3b (two layers, ``remat="dots"``)
+                 trained 3 steps on the card through the flash kernels and
+                 3 steps on the CPU through their plain versions, from the
+                 same weights and batches: losses within 1e-4.
+  train_full     ``repro_torch.launch.train`` on the full-width llama3.2-3b
+                 (bf16, random weights from a seeded generator on the card),
+                 train_4k's sequence of 4096 at batch 1, ``remat="dots"``,
+                 AdamW with the cosine schedule, 8 steps (2 untimed):
+                 finite losses, the first where random weights put it, and
+                 the flash launches the layers imply.
   profile        (only with ``--phases profile``) ``torch.profiler`` over
-                 30 full-width steps: device busy and idle time, and the
-                 kernels that take it.
+                 30 full-width engine steps: device busy and idle time, and
+                 the kernels that take it.
+  train_profile  (only with ``--phases train_profile``) the same over 2
+                 full-width train steps of the train_full configuration.
 
 Then the kernel table (one JSON object), the card's ``name, power.limit``
 as nvidia-smi prints them, and the result line.  Any failed check raises,
@@ -48,6 +66,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves, tree_map
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -57,6 +76,7 @@ MEM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 INT32_MAX = 2**31 - 1
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_BF16_NORM_REL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -100,11 +120,7 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
 
 
 def to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
 
 
 # ------------------------------------------------------------------ kernels
@@ -313,6 +329,122 @@ def check_decode(dev, seed: int) -> dict:
     return out
 
 
+FLASH_TRAIN = dict(B=1, S=4096, H=24, hkv=8, d=128)
+
+
+def _flash_inputs(g, dev, dtype, B, S, H, hkv, d, Sk=None):
+    Sk = Sk or S
+    return [torch.randn(*shape, generator=g, device=dev).to(dtype)
+            for shape in ((B, S, H, d), (B, Sk, hkv, d), (B, Sk, hkv, d),
+                          (B, S, H, d))]
+
+
+def flash_close(a, b, dtype) -> dict:
+    """The kernel's ``a`` against the plain version's ``b``: the largest
+    absolute difference, the norm-relative error ||a - b|| / ||b||, and
+    whether both hold the tolerance ``tol`` of the dtype.  In f32 every
+    element must lie within tol * (1 + |b|).  In bf16 every element must
+    lie within tol * (rms(b) + |b|) -- one bf16 rounding of a large
+    gradient passes, a wrong small one does not -- and the norm-relative
+    error within FLASH_BF16_NORM_REL."""
+    a, b = a.double(), b.double()
+    diff = (a - b).abs()
+    tol = ATTN_TOL[dtype]
+    rel = (diff.norm() / b.norm().clamp(min=1e-30)).item()
+    if dtype == torch.float32:
+        ok = bool((diff <= tol * (1 + b.abs())).all())
+    else:
+        rms = b.square().mean().sqrt()
+        ok = bool((diff <= tol * (rms + b.abs())).all()) \
+            and rel <= FLASH_BF16_NORM_REL
+    return {"max_abs": diff.max().item(), "norm_rel": rel, "ok": ok}
+
+
+def _flash_errs(FA, R, q, k, v, do, causal) -> dict:
+    """``flash_close`` of the kernels against the plain versions on the
+    same inputs, for out, lse, dq, dk and dv."""
+    out, lse = FA.flash_fwd(q, k, v, causal=causal)
+    grads = FA.flash_bwd(q, k, v, out, lse, do, causal=causal)
+    want_out, want_lse = R.flash_fwd(q, k, v, causal=causal)
+    want = R.flash_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    pairs = zip(("out", "lse", "dq", "dk", "dv"), (out, lse) + tuple(grads),
+                (want_out, want_lse) + tuple(want))
+    return {name: flash_close(a, b, q.dtype) for name, a, b in pairs}
+
+
+def check_flash(dev, seed: int) -> dict:
+    """The flash forward and backward against their plain versions: at
+    the training shape (bf16, causal) with times, bounds and the library
+    yardstick, and at a ragged S in f32 and bf16, causal and not."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as R
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    cases = [("train_bf16_causal", torch.bfloat16, True, FLASH_TRAIN)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            cases.append((f"ragged_{'f32' if dtype == torch.float32 else 'bf16'}"
+                          f"_{'causal' if causal else 'full'}", dtype, causal,
+                          dict(B=2, S=1000, H=24, hkv=8, d=128)))
+    cases.append(("cross_f32_full", torch.float32, False,
+                  dict(B=1, S=333, H=6, hkv=2, d=80, Sk=1000)))
+    for name, dtype, causal, shape in cases:
+        q, k, v, do = _flash_inputs(g, dev, dtype, **shape)
+        errs = _flash_errs(FA, R, q, k, v, do, causal)
+        if not all(e["ok"] for e in errs.values()):
+            raise AssertionError(f"flash {name}: {errs} over "
+                                 f"{ATTN_TOL[dtype]}")
+        out[name] = errs
+    # the training shape: times against the bound and the library call
+    B, S, H, hkv, d = (FLASH_TRAIN[k] for k in ("B", "S", "H", "hkv", "d"))
+    q, k, v, do = _flash_inputs(g, dev, torch.bfloat16, **FLASH_TRAIN)
+    o, lse = FA.flash_fwd(q, k, v, causal=True)
+    fwd_ms = cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=True), 10, 2)
+    bwd_ms = cuda_ms(lambda: FA.flash_bwd(q, k, v, o, lse, do, causal=True),
+                     5, 1)
+    fwd_plain = cuda_ms(lambda: R.flash_fwd(q, k, v, causal=True), 3, 1)
+    bwd_plain = cuda_ms(lambda: R.flash_bwd(q, k, v, o, lse, do,
+                                            causal=True), 3, 1)
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              enable_gqa=True)
+
+    lq, lk, lv = (t.detach().requires_grad_() for t in (qs, ks, vs))
+    dos = do.transpose(1, 2)
+
+    def lib_fwd_bwd():
+        y = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(y, (lq, lk, lv), dos)
+
+    lib_err = (lib_fwd().transpose(1, 2).float() - o.float()).abs().max()
+    lib_f = cuda_ms(lib_fwd, 10, 2)
+    lib_fb = cuda_ms(lib_fwd_bwd, 5, 1)
+    # causal work: half of the S x S scores; forward 2 products, the
+    # backward's necessary 5 (s, dp, dq, dk, dv) = 2.5x the forward
+    fwd_ops = 4 * B * H * S * S * d / 2
+    qkv_bytes = 2 * (B * S * H * d + 2 * B * S * hkv * d)
+    fwd_bytes = qkv_bytes + 2 * B * S * H * d + 4 * B * H * S
+    bwd_bytes = (qkv_bytes + 2 * 2 * B * S * H * d + 4 * B * H * S
+                 + qkv_bytes)
+    out["timing"] = {
+        "flash_fwd": (fwd_ms, fwd_plain,
+                      bound_ms(fwd_bytes, fwd_ops, torch.bfloat16), lib_f),
+        "flash_bwd": (bwd_ms, bwd_plain,
+                      bound_ms(bwd_bytes, 2.5 * fwd_ops, torch.bfloat16),
+                      lib_fb)}
+    out["fwd_tflops"] = fwd_ops / fwd_ms / 1e9
+    out["bwd_tflops"] = 2.5 * fwd_ops / bwd_ms / 1e9
+    out["library_max_abs_err"] = lib_err.item()
+    return out
+
+
 # ------------------------------------------------------------------ engine
 
 
@@ -384,11 +516,12 @@ def engine_parity(dev, seed: int) -> dict:
 
     cfg = dataclasses.replace(reduced(get_config("llama3.2-3b")),
                               dtype="float32")
-    params = M.init_params(cfg, torch.Generator().manual_seed(seed))
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                           device="cpu")
     gparams = to_device(params, dev)
     # decode logits, CPU against the card, over a few steps
     rng = np.random.default_rng(seed)
-    states = {"cpu": M.decode_state(cfg, 4, 64),
+    states = {"cpu": M.decode_state(cfg, 4, 64, "cpu"),
               "cuda": M.decode_state(cfg, 4, 64, dev)}
     lengths = np.array([0, 3, 17, 40], np.int32)
     logit_err = 0.0
@@ -442,7 +575,7 @@ def engine_full(dev, seed: int) -> dict:
     # the control reference: the same sessions at reduced width on the CPU
     small = dataclasses.replace(reduced(cfg), dtype="float32")
     ref = run_engine(E, small, M.init_params(
-        small, torch.Generator().manual_seed(seed)),
+        small, torch.Generator().manual_seed(seed), device="cpu"),
         full_sessions(S, D, seed), ecfg, "cpu").report()
 
     t0 = time.perf_counter()
@@ -450,7 +583,7 @@ def engine_full(dev, seed: int) -> dict:
                            device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     eng = E.Engine(cfg, params, ecfg=ecfg, seed=0, device=dev)
     sessions = full_sessions(S, D, seed)
     for s in sessions:
@@ -483,7 +616,8 @@ def engine_full(dev, seed: int) -> dict:
     steps = eng.step_no
     report = eng.report()
     want = {"fused_charge_batch": steps, "fused_slot_gate": steps,
-            "decode_attention": cfg.n_layers * steps}
+            "decode_attention": cfg.n_layers * steps, "flash_fwd": 0,
+            "flash_bwd": 0}
     if counts != want:
         raise AssertionError(f"launches {counts}, expected {want}")
     if report != ref:
@@ -514,13 +648,97 @@ def engine_full(dev, seed: int) -> dict:
             "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
+def train_parity(dev, seed: int) -> dict:
+    """Three train steps of the reduced f32 model (two layers, selective
+    remat) on the card and on the CPU from the same weights and data."""
+    from repro_torch.configs import SHAPES, get_config, reduced
+    from repro_torch.data.pipeline import DataIterator
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.perf import DEFAULT_PERF, replace
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+
+    cfg = dataclasses.replace(reduced(get_config("llama3.2-3b")),
+                              dtype="float32", n_layers=2)
+    perf = replace(DEFAULT_PERF, remat="dots")
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    losses = {}
+    reset_launch_counts()
+    for where in ("cpu", dev):
+        params = to_device(M.init_params(
+            cfg, torch.Generator().manual_seed(seed), device="cpu"), where)
+        state = init_train_state(cfg, params, perf)
+        step = make_train_step(cfg, perf, opt)
+        data = DataIterator(cfg, SHAPES["train_4k"], seed=seed, batch=4,
+                            seq=256, device=where)
+        losses[str(where)] = []
+        for i in range(3):
+            params, state, m = step(params, state, data.at(i), i)
+            losses[str(where)].append(float(m["loss"]))
+    counts = launch_counts()
+    if counts["flash_fwd"] != 3 * 2 * 2 or counts["flash_bwd"] != 3 * 2:
+        raise AssertionError(f"train_parity launches {counts}")
+    err = max(abs(a - b) for a, b in zip(losses["cpu"], losses[str(dev)]))
+    if not err <= 1e-4:
+        raise AssertionError(f"train losses differ by {err}: {losses}")
+    return {"losses": losses, "max_abs_err": err,
+            "launches": {k: counts[k] for k in ("flash_fwd", "flash_bwd")}}
+
+
+TRAIN_FULL = ["--arch", "llama3.2-3b", "--shape", "train_4k", "--batch",
+              "1", "--seq", "4096", "--steps", "8", "--ckpt-every", "0",
+              "--device", "cuda", "--log-every", "1"]
+TRAIN_WARM = 2
+
+
+def train_full(dev, seed: int) -> dict:
+    """The port's training driver at full width.  With ``remat="dots"``
+    every layer runs the flash forward twice (the step and the recompute
+    in the backward) and the backward once."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+
+    cfg = get_config("llama3.2-3b")
+    args = train.parse_args(TRAIN_FULL + ["--seed", str(seed)])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    report = train.run(args)
+    counts = launch_counts()
+    losses = report["losses"]
+    if len(losses) != args.steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train_full losses {losses}")
+    # random weights: tied embeddings of std 0.02 against unit-RMS final
+    # activations give logits of variance d * 0.02**2, so the first CE is
+    # ln V + var / 2, plus the 1e-4 z-loss of that log-partition
+    var = cfg.d_model * 0.02 ** 2
+    logz = float(np.log(cfg.padded_vocab)) + var / 2
+    expect = logz + 1e-4 * logz ** 2
+    if not abs(losses[0] - expect) <= 0.5:
+        raise AssertionError(f"first loss {losses[0]}, expected {expect}")
+    want = {"flash_fwd": 2 * cfg.n_layers * args.steps,
+            "flash_bwd": cfg.n_layers * args.steps}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"train_full launches {got}, expected {want}")
+    timed = report["step_s"][TRAIN_WARM:]
+    p50 = statistics.median(timed)
+    return {"steps": args.steps, "timed_steps": len(timed),
+            "step_s": report["step_s"], "step_s_p50": p50,
+            "tokens_per_s": report["tokens_per_step"] / p50,
+            "peak_memory_gb": report["peak_memory_gb"], "losses": losses,
+            "first_loss_expected": expect,
+            "ln_padded_vocab": float(np.log(cfg.padded_vocab)),
+            "launches": got}
+
+
 def profile_step(dev, seed: int, warm: int = 40, steps: int = 30) -> dict:
     """Where the full-width step's time goes: ``torch.profiler`` over
     ``steps`` engine steps after ``warm`` steps of the engine_full
     sessions — wall time, device busy time and the kernels that take
     it.  Not part of the default run."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.core import domains as D
     from repro_torch.models import model as M
@@ -536,12 +754,54 @@ def profile_step(dev, seed: int, warm: int = 40, steps: int = 30) -> dict:
         eng.submit(s)
     for _ in range(warm):
         eng.step()
+    return _profile(eng.step, steps)
+
+
+def train_profile(dev, seed: int, warm: int = 1, steps: int = 2) -> dict:
+    """Where the full-width train step's time goes: ``torch.profiler``
+    over ``steps`` steps of the train_full configuration after ``warm``
+    steps.  Not part of the default run."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data.pipeline import DataIterator
+    from repro_torch.models import model as M
+    from repro_torch.perf import DEFAULT_PERF
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+
+    cfg = get_config("llama3.2-3b")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    opt = init_train_state(cfg, params, DEFAULT_PERF)
+    step_fn = make_train_step(cfg, DEFAULT_PERF, OptConfig(total_steps=8,
+                                                           warmup_steps=5))
+    data = DataIterator(cfg, SHAPES["train_4k"], seed=seed, batch=1,
+                        seq=4096, device=dev)
+    batch = data.at(0)
+    state = {"params": params, "opt": opt, "i": 0}
+
+    def one_step():
+        state["params"], state["opt"], m = step_fn(
+            state["params"], state["opt"], batch, state["i"])
+        state["i"] += 1
+        return float(m["loss"])
+
+    for _ in range(warm):
+        one_step()
+    return _profile(one_step, steps)
+
+
+def _profile(step, steps: int) -> dict:
+    """``torch.profiler`` over ``steps`` calls of ``step``: wall time,
+    device busy time and idle share, and the kernels that take it."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / steps
     kernels = [e for e in prof.key_averages()
@@ -556,17 +816,6 @@ def profile_step(dev, seed: int, warm: int = 40, steps: int = 30) -> dict:
                              e.count / steps, "ms_per_step":
                              e.self_device_time_total / 1e3 / steps}
                             for e in top]}
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def _host_gate(snap: dict, dom: list, step: int) -> list:
@@ -590,11 +839,15 @@ def _host_gate(snap: dict, dom: list, step: int) -> list:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,engine_parity,engine_full",
+    ap.add_argument("--phases",
+                    default="kernels,engine_parity,engine_full,train_parity,"
+                            "train_full",
                     help="comma-separated phases to run, of kernels, "
-                         "engine_parity, engine_full and profile (not in "
-                         "the default run); the result line is printed "
-                         "only when kernels and engine_full ran")
+                         "engine_parity, engine_full, train_parity, "
+                         "train_full, and profile and train_profile (not "
+                         "in the default run); "
+                         "the result line is printed only when kernels, "
+                         "engine_full and train_full ran")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -629,8 +882,10 @@ def main() -> None:
         enf = check_enforcement(dev, args.seed)
         tim = time_enforcement(dev, args.seed)
         dec = check_decode(dev, args.seed)
+        fla = check_flash(dev, args.seed)
         emit({"phase": "kernels", "card": card, "enforcement": enf,
-              "enforcement_times": tim, "decode_attention": dec})
+              "enforcement_times": tim, "decode_attention": dec,
+              "flash_attention": fla})
         rows = {
             "fused_charge_batch": dict(
                 source="src/repro_torch/csrc/enforcement.cu",
@@ -647,6 +902,17 @@ def main() -> None:
                 replaces="src/repro/kernels/decode_attention.py:87",
                 max_abs_err=dec["bf16_max_abs_err"], timing=dec["timing"]),
         }
+        for name, parts in (("flash_fwd", ("out", "lse")),
+                            ("flash_bwd", ("dq", "dk", "dv"))):
+            errs = [e[k] for case, e in fla.items()
+                    if case.startswith(("train", "ragged", "cross"))
+                    for k in parts]
+            rows[name] = dict(
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:92",
+                max_abs_err=max(e["max_abs"] for e in errs),
+                norm_rel_err=max(e["norm_rel"] for e in errs),
+                timing=fla["timing"][name])
     if "engine_parity" in phases:
         emit({"phase": "engine_parity", "card": card,
               **engine_parity(dev, args.seed)})
@@ -654,20 +920,33 @@ def main() -> None:
     if "engine_full" in phases:
         full = engine_full(dev, args.seed)
         emit({"phase": "engine_full", "card": card, **full})
+    if "train_parity" in phases:
+        emit({"phase": "train_parity", "card": card,
+              **train_parity(dev, args.seed)})
+    train = None
+    if "train_full" in phases:
+        train = train_full(dev, args.seed)
+        emit({"phase": "train_full", "card": card, **train})
     if "profile" in phases:
         emit({"phase": "profile", "card": card,
               **profile_step(dev, args.seed)})
-    if rows is None or full is None:
+    if "train_profile" in phases:
+        emit({"phase": "train_profile", "card": card,
+              **train_profile(dev, args.seed)})
+    if rows is None or full is None or train is None:
         return
+    launches = dict(full["launches"], **train["launches"])
     table = []
     for name, r in rows.items():
         ms, plain, (bnd, by), lib = r["timing"]
         table.append({"name": name, "route": "cuda", "source": r["source"],
                       "replaces": r["replaces"],
-                      "launches": full["launches"][name],
+                      "launches": launches[name],
                       "max_abs_err": r["max_abs_err"], "ms": ms,
                       "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-                      "library_ms": lib})
+                      "library_ms": lib,
+                      **({"max_norm_rel_err": r["norm_rel_err"]}
+                         if "norm_rel_err" in r else {})})
     emit({"kernels": table})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

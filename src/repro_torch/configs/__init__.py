@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.configs.llama3_2_3b import CONFIG as _LLAMA3_2_3B
 
 _CONFIGS = {"llama3.2-3b": _LLAMA3_2_3B}
@@ -44,4 +44,5 @@ def reduced(cfg: ModelConfig, seed_vocab: int = 512) -> ModelConfig:
     )
 
 
-__all__ = ["ModelConfig", "ARCH_IDS", "get_config", "reduced"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "ARCH_IDS", "get_config",
+           "reduced"]

@@ -1,8 +1,9 @@
 """Model configuration schema (port of ``repro/configs/base.py``).
 
 A copy of the JAX package's dataclasses, so the port never imports the
-reference.  The shape/cell table of the reference (a TPU dry-run
-concern) is not carried over.
+reference, with the assigned input shapes (``SHAPES``; the trainer takes
+its sequence length from ``train_4k``).  The cell-applicability rules of
+the reference (a TPU dry-run concern) are not carried over.
 """
 from __future__ import annotations
 
@@ -190,3 +191,19 @@ class ModelConfig:
                 per_group += d * m.n_experts                    # router
         n += per_group * self.n_groups
         return n
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str                # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}

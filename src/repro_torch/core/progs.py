@@ -51,6 +51,36 @@ def fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def xla_exp2(x):
+    """``2 ** x`` in f32, bit for bit as XLA on the CPU computes
+    ``jnp.exp2``: ``exp(x * f32(ln 2))`` through the Cephes polynomial
+    with fused multiply-adds, the input clamped to [-87.8, 88.8], the
+    exponent to [-127, 127], and results below the smallest normal f32
+    flushed to zero.  ``torch.exp2`` differs from it in the last bit on
+    about a quarter of non-integer arguments."""
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=x.device)
+
+    r = torch.clamp(x.float() * f32(0.693147182), -87.8, 88.8)
+    n = torch.floor(fma(r, f32(1.44269504088896341), f32(0.5)))
+    n = torch.clamp(n, -127.0, 127.0)
+    t = fma(n, f32(-0.693359375), r)
+    t = fma(n, f32(2.12194440e-4), t)
+    y = torch.full_like(t, 1.9875691500e-4)
+    for c in (1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+              1.6666665459e-1, 5.0000001201e-1):
+        y = fma(y, t, f32(c))
+    y = fma(y, t * t, t) + 1
+    # 2 ** n from its exponent bits; a NaN input stays NaN through y
+    pow2 = ((torch.nan_to_num(n).to(torch.int32) + 127) << 23).view(
+        torch.float32)
+    out = y * pow2
+    return torch.where(out.abs() < _F32_TINY, torch.zeros_like(out), out)
+
+
 class Request(NamedTuple):
     """One charge attempt, as seen by a program hook."""
     dom: torch.Tensor     # charged domain handle (i32)

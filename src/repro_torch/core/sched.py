@@ -26,7 +26,7 @@ from repro_torch.core.controller import UNLIMITED, _ancestor_chain, _chain_view
 from repro_torch.core.pressure import saturating_count, sched_stall_events
 from repro_torch.core.progs import (GraduatedThrottleProgram, SchedRequest,
                                     SchedView, as_programs, gate_decision,
-                                    schedule_weight)
+                                    schedule_weight, xla_exp2)
 
 DEFAULT_WEIGHT = D.DEFAULT_WEIGHT
 MIN_WEIGHT, MAX_WEIGHT = 1, 10000
@@ -158,5 +158,5 @@ class WeightedFairProgram(GraduatedThrottleProgram):
                                np.asarray([0.0, 1.0], np.float32)])
 
     def on_schedule(self, view, req):
-        w = view.flat_weight * torch.exp2(view.params[..., 4])
+        w = view.flat_weight * xla_exp2(view.params[..., 4])
         return torch.where(view.params[..., 5] > 0, w, torch.zeros_like(w))

@@ -3,6 +3,8 @@
   enforcement       — fused hierarchical charge and slot gate
                       (csrc/enforcement.cu)
   decode_attention  — one-token GQA flash-decoding (csrc/decode_attention.cu)
+  flash_attention   — full-sequence flash forward and backward, joined in
+                      an autograd Function (csrc/flash_attention.cu)
   ref               — plain torch oracles
   ops               — the per-op entry points the models call
 
@@ -16,9 +18,11 @@ def _wrappers() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.enforcement import (fused_charge_batch,
                                                  fused_slot_gate)
+    from repro_torch.kernels.flash_attention import flash_bwd, flash_fwd
     return {"fused_charge_batch": fused_charge_batch,
             "fused_slot_gate": fused_slot_gate,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention,
+            "flash_fwd": flash_fwd, "flash_bwd": flash_bwd}
 
 
 def launch_counts() -> dict:

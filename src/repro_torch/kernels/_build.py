@@ -26,7 +26,8 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]
 # per-source extra flags: the enforcement kernels must not contract
 # multiply-adds behind the decision code's back (see the source note)
-EXTRA_FLAGS = {"enforcement": ["--fmad=false"], "decode_attention": []}
+EXTRA_FLAGS = {"enforcement": ["--fmad=false"], "decode_attention": [],
+               "flash_attention": []}
 
 _loaded: dict = {}
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional
 
 from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *,
@@ -17,3 +18,10 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     """Dense-cache single-token decode (flash-decoding split over S)."""
     return _decode.decode_attention(q, k_cache, v_cache, lengths,
                                     scale=scale)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: Optional[float] = None):
+    """Full-sequence attention (train / prefill), differentiable: the
+    hand-written flash forward and two-pass backward."""
+    return _flash.flash_attention(q, k, v, causal=causal, scale=scale)

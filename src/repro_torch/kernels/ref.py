@@ -1,8 +1,9 @@
 """Plain torch oracles for the port's kernels (``repro/kernels/ref.py``).
 
-Only the decode-attention oracle is ported in this slice; the flash
-forward/backward, paged decode, SSD and mLSTM oracles come with their
-kernels (ROADMAP Queue 2).
+Ported so far: the decode-attention oracle, the naive attention oracle
+and the blockwise flash forward and two-pass backward that the CUDA
+flash kernels are held against.  The paged decode, SSD and mLSTM
+oracles come with their kernels (ROADMAP Queue 2).
 """
 from __future__ import annotations
 
@@ -52,3 +53,168 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, *,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(B, H, dv).to(q.dtype)
+
+
+# ----------------------------------------------------------- attention
+
+
+def _expand_kv(q, k):
+    """Group-query: q as (B, S, Hkv, G, d)."""
+    hq, hkv = q.shape[2], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads over {hkv} kv heads")
+    g = hq // hkv
+    return q.reshape(q.shape[0], q.shape[1], hkv, g, q.shape[3]), g
+
+
+def _acc_dtype(t):
+    """f32 arithmetic, as the reference's; f64 inputs (gradcheck) stay
+    f64."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def attention_naive(q, k, v, *, causal: bool = True,
+                    scale: Optional[float] = None):
+    """O(S^2)-memory oracle. q:(B,S,H,dk) k:(B,Sk,Hkv,dk) v:(B,Sk,Hkv,dv).
+
+    Its causal mask is the reference oracle's ``tril(..., Sk - Sq)``; the
+    flash forms mask ``qpos >= kpos``.  The two agree when Sq == Sk."""
+    scale = scale or q.shape[-1] ** -0.5
+    f = _acc_dtype(q)
+    qg, _ = _expand_kv(q, k)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(f), k.to(f)) * scale
+    if causal:
+        sq, sk = q.shape[1], k.shape[1]
+        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(
+            sk - sq)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bske->bqkge", p, v.to(f))
+    return o.reshape(*q.shape[:3], v.shape[-1]).to(q.dtype)
+
+
+def _causal_hi(iq: int, bq: int, bk: int, sq: int, nk: int) -> int:
+    """kv blocks a causal q block needs: those starting at or before its
+    last query row (the rest are masked out entirely)."""
+    return min(nk, -(-min((iq + 1) * bq, sq) // bk))
+
+
+def flash_fwd(q, k, v, *, causal: bool = True,
+              scale: Optional[float] = None, block_q: int = 512,
+              block_k: int = 1024):
+    """Blockwise flash forward, step for step the reference's
+    ``_flash_fwd``: (out (B,S,H,dv), lse (B,H,S) f32).  The last q and kv
+    blocks may be short, so any S works; a causal q block skips the kv
+    blocks above its diagonal."""
+    B, S, H, dk = q.shape
+    Sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    scale = scale or dk ** -0.5
+    f = _acc_dtype(q)
+    bq, bk = min(block_q, S), min(block_k, Sk)
+    nq, nk = -(-S // bq), -(-Sk // bk)
+    qg, g = _expand_kv(q, k)
+    dev = q.device
+    outs, lses = [], []
+    for iq in range(nq):
+        qb = qg[:, iq * bq:(iq + 1) * bq].to(f) * scale   # (B,bq,Hkv,G,dk)
+        rows = qb.shape[1]
+        qpos = iq * bq + torch.arange(rows, device=dev)
+        acc = torch.zeros(B, hkv, g, rows, dv, dtype=f, device=dev)
+        m = torch.full((B, hkv, g, rows), NEG_INF, dtype=f, device=dev)
+        l = torch.zeros(B, hkv, g, rows, dtype=f, device=dev)
+        hi = _causal_hi(iq, bq, bk, S, nk) if causal else nk
+        for ik in range(hi):
+            kb = k[:, ik * bk:(ik + 1) * bk].to(f)
+            vb = v[:, ik * bk:(ik + 1) * bk].to(f)
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb)
+            if causal:
+                kpos = ik * bk + torch.arange(kb.shape[1], device=dev)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s,
+                                torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bske->bkgqe", p, vb)
+            m = m_new
+        lc = torch.clamp(l, min=1e-30)
+        outs.append((acc / lc[..., None]).permute(0, 3, 1, 2, 4).reshape(
+            B, rows, H, dv))
+        lses.append(m + torch.log(lc))
+    out = torch.cat(outs, dim=1).to(q.dtype)
+    lse = torch.cat(lses, dim=-1).reshape(B, H, S)
+    return out, lse
+
+
+def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+              scale: Optional[float] = None, block_q: int = 512,
+              block_k: int = 1024):
+    """Two-pass blockwise backward, step for step the reference's
+    ``_flash_bwd``: p is recomputed from ``lse`` (B,H,S); pass 1 gives dq
+    per q block, pass 2 dk/dv per kv block summed over the G query heads
+    of each kv head.  Returns (dq, dk, dv) in the input dtypes."""
+    B, S, H, dkd = q.shape
+    Sk, hkv, dvd = k.shape[1], k.shape[2], v.shape[-1]
+    scale = scale or dkd ** -0.5
+    f = _acc_dtype(q)
+    bq, bk = min(block_q, S), min(block_k, Sk)
+    nq, nk = -(-S // bq), -(-Sk // bk)
+    qg, g = _expand_kv(q, k)
+    dev = q.device
+    kf, vf = k.to(f), v.to(f)
+    lse = lse.to(f).reshape(B, hkv, g, S)
+    # D_i = rowsum(dO * O): (B,S,H) -> (B,Hkv,G,S)
+    drow = torch.einsum("bshe,bshe->bsh", dout.to(f), out.to(f))
+    drow = drow.reshape(B, S, hkv, g).permute(0, 2, 3, 1)
+    dog = dout.reshape(B, S, hkv, g, dvd).to(f)
+
+    def mask(s, q0, k0):
+        qpos = q0 + torch.arange(s.shape[-2], device=dev)
+        kpos = k0 + torch.arange(s.shape[-1], device=dev)
+        return torch.where(qpos[:, None] >= kpos[None, :], s,
+                           torch.full_like(s, NEG_INF))
+
+    # ---- pass 1: dq per q block (inner loop over kv blocks)
+    dqs = []
+    for iq in range(nq):
+        sl = slice(iq * bq, (iq + 1) * bq)
+        qb, dob = qg[:, sl].to(f), dog[:, sl]
+        lseb, db = lse[..., sl], drow[..., sl]
+        dqa = torch.zeros(*qb.shape[:4], dkd, dtype=f, device=dev)
+        hi = _causal_hi(iq, bq, bk, S, nk) if causal else nk
+        for ik in range(hi):
+            kb, vb = kf[:, ik * bk:(ik + 1) * bk], vf[:, ik * bk:(ik + 1) * bk]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb * scale, kb)
+            if causal:
+                s = mask(s, iq * bq, ik * bk)
+            p = torch.exp(s - lseb[..., None])
+            dp = torch.einsum("bqkge,bske->bkgqs", dob, vb)
+            ds = p * (dp - db[..., None]) * scale
+            dqa = dqa + torch.einsum("bkgqs,bskd->bqkgd", ds, kb)
+        dqs.append(dqa.reshape(B, -1, H, dkd))
+    dq = torch.cat(dqs, dim=1)
+
+    # ---- pass 2: dk/dv per kv block (inner loop over q blocks)
+    dks, dvs = [], []
+    for ik in range(nk):
+        kb, vb = kf[:, ik * bk:(ik + 1) * bk], vf[:, ik * bk:(ik + 1) * bk]
+        dka = torch.zeros(B, kb.shape[1], hkv, dkd, dtype=f, device=dev)
+        dva = torch.zeros(B, kb.shape[1], hkv, dvd, dtype=f, device=dev)
+        lo = (ik * bk) // bq if causal else 0
+        for iq in range(lo, nq):
+            sl = slice(iq * bq, (iq + 1) * bq)
+            qb, dob = qg[:, sl].to(f), dog[:, sl]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb * scale, kb)
+            if causal:
+                s = mask(s, iq * bq, ik * bk)
+            p = torch.exp(s - lse[..., sl, None])
+            dva = dva + torch.einsum("bkgqs,bqkge->bske", p, dob)
+            dp = torch.einsum("bqkge,bske->bkgqs", dob, vb)
+            ds = p * (dp - drow[..., sl, None]) * scale
+            dka = dka + torch.einsum("bkgqs,bqkgd->bskd", ds, qb)
+        dks.append(dka)
+        dvs.append(dva)
+    dk = torch.cat(dks, dim=1).to(k.dtype)
+    dv = torch.cat(dvs, dim=1).to(v.dtype)
+    return dq.to(q.dtype), dk, dv

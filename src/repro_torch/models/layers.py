@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, RoPE, SwiGLU MLP, embedding, LM head.
+"""Shared layers: RMSNorm, RoPE, SwiGLU MLP, embedding, LM head, the
+cross-entropy loss.
 
 Port of ``repro/models/layers.py``.  The matrix products the JAX package
 leaves to XLA stay plain ``@`` products here.
@@ -62,3 +63,17 @@ def embed_tokens(cfg: ModelConfig, p, tokens):
 def lm_head(cfg: ModelConfig, p, x):
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
     return (x @ w).float()
+
+
+def cross_entropy(logits, labels, weights):
+    """Mean CE over weighted positions, logits f32 (B, S, V) over the
+    padded vocab, plus the reference's 1e-4 z-loss.  The gold logit comes
+    from a one-hot mask, as in the reference (``layers.py:111-124``)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    onehot = F.one_hot(labels.long(), logits.shape[-1]).to(logits.dtype)
+    gold = (logits * onehot).sum(-1)
+    nll = (logz - gold) * weights
+    denom = torch.clamp(weights.sum(), min=1.0)
+    # small z-loss for stability (MaxText-style)
+    zloss = 1e-4 * (logz * weights) ** 2
+    return (nll.sum() + zloss.sum()) / denom

@@ -1,21 +1,36 @@
-"""Model assembly for decode: embedding -> layer groups -> norm -> head.
+"""Model assembly: embedding -> layer groups -> norm -> head.
 
-Port of the dense-decode part of ``repro/models/model.py`` (``decode_step``
-and the parameter and decode-state layouts).  Parameters keep the JAX
+Port of the dense part of ``repro/models/model.py``: the full-sequence
+``forward`` and ``loss_fn`` (training) and ``decode_step`` (serving),
+with the parameter and decode-state layouts.  Parameters keep the JAX
 package's tree: ``embed.tok``, per-position ``groups`` whose leaves are
 stacked on a leading ``n_groups`` axis, and ``out_norm``; the decode
 state is a per-position list of ``{k, v}: (n_groups, B, S_max, Hkv, hd)``
 caches.  Only attention mixers with dense FFNs are ported (ROADMAP
 Queue 1 item 7 lists the other families).
+
+The reference scans the layer groups under ``jax.checkpoint``; here the
+groups are a plain loop, each under ``torch.utils.checkpoint`` as
+``PerfConfig.remat`` says: ``none``, ``full`` (recompute the whole group
+in the backward) or ``dots`` (keep the outputs of the matrix products
+and recompute the rest, the counterpart of
+``dots_with_no_batch_dims_saveable``).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import gqa_decode
-from repro_torch.models.layers import embed_tokens, lm_head, mlp, rmsnorm
+from repro_torch.core.controller import resolve_device
+from repro_torch.models.attention import gqa_decode, gqa_forward
+from repro_torch.models.layers import (cross_entropy, embed_tokens, lm_head,
+                                       mlp, rmsnorm, rope_table)
+from repro_torch.perf import DEFAULT_PERF, PerfConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -51,12 +66,15 @@ def _group_shapes(cfg: ModelConfig) -> dict:
 _SMALL = {"wo", "w_down"}
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device="cpu",
-                dtype=None) -> dict:
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda", dtype=None) -> dict:
     """Random parameters in the reference layout, drawn from ``generator``
-    on ``device`` (the draws differ from the JAX package's: carry its
-    weights over with ``params_from_jax`` where values must agree)."""
+    on ``device`` (the card unless the caller asks for the CPU; the
+    generator must live there too).  The draws differ from the JAX
+    package's: carry its weights over with ``params_from_jax`` where
+    values must agree."""
     _check_ported(cfg)
+    device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
     n = cfg.n_groups
 
@@ -89,10 +107,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cpu",
                                              device=device)}}
 
 
-def params_from_jax(np_tree, cfg: ModelConfig, device="cpu") -> dict:
+def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> dict:
     """The JAX package's parameter tree (as numpy arrays) as the port's
-    parameters: the same tree, each leaf a tensor in the model dtype."""
+    parameters on ``device``: the same tree, each leaf a tensor in the
+    model dtype."""
     _check_ported(cfg)
+    device = resolve_device(device)
     dtype = torch_dtype(cfg)
 
     def conv(node):
@@ -105,10 +125,12 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cpu") -> dict:
     return conv(np_tree)
 
 
-def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cpu",
+def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cuda",
                  dtype=None) -> list:
-    """Zeroed per-position ``{k, v}`` caches, stacked over groups."""
+    """Zeroed per-position ``{k, v}`` caches, stacked over groups, on
+    ``device``."""
     _check_ported(cfg)
+    device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
     shape = (cfg.n_groups, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -140,3 +162,76 @@ def decode_step(cfg: ModelConfig, params, state, tokens, lengths):
             x = x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
     x = rmsnorm(params["out_norm"], x, cfg.norm_eps)
     return lm_head(cfg, params["embed"], x)[:, 0], state
+
+
+# ------------------------------------------------------------- forward
+
+# the matrix products whose outputs ``remat="dots"`` keeps: those with no
+# batch dimension, as ``dots_with_no_batch_dims_saveable`` (the flash
+# kernel's own products are inside its Function and recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str):
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
+def _unstack(tree, n: int) -> list:
+    """The stacked leaves as ``n`` per-group trees of views, by one
+    ``unbind`` per leaf, whose backward stacks the group gradients once."""
+    out = [{} for _ in range(n)]
+    for key, val in tree.items():
+        parts = (_unstack(val, n) if isinstance(val, dict)
+                 else val.unbind(0))
+        for i in range(n):
+            out[i][key] = parts[i]
+    return out
+
+
+def forward(cfg: ModelConfig, params, batch, *,
+            perf: PerfConfig = DEFAULT_PERF, causal=None):
+    """Full-sequence forward -> (logits (B,S,V) f32, aux loss scalar)."""
+    _check_ported(cfg)
+    causal = (not cfg.encoder_only) if causal is None else causal
+    x = embed_tokens(cfg, params["embed"], batch["tokens"])
+    S = x.shape[1]
+    cos, sin = (rope_table(S, cfg.head_dim_, cfg.rope_theta, device=x.device)
+                if cfg.rope_theta else (None, None))
+    per_pos = [_unstack(gp, cfg.n_groups) for gp in params["groups"]]
+
+    def group_body(h, *group):
+        for p in group:
+            hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
+            h = h + gqa_forward(cfg, p["mixer"], hn, cos, sin, causal=causal)
+            h = h + mlp(p["ffn"], rmsnorm(p["ln2"], h, cfg.norm_eps))
+        return h
+
+    body = _remat(group_body, perf.remat)
+    for i in range(cfg.n_groups):
+        x = body(x, *(pos[i] for pos in per_pos))
+    x = rmsnorm(params["out_norm"], x, cfg.norm_eps)
+    logits = lm_head(cfg, params["embed"], x)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *,
+            perf: PerfConfig = DEFAULT_PERF):
+    """Scalar loss + metrics.  batch: tokens, labels, weights."""
+    logits, aux = forward(cfg, params, batch, perf=perf)
+    ce = cross_entropy(logits, batch["labels"], batch["weights"].float())
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}

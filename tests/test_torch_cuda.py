@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, over every head width and query-group size the decode kernel
-takes and every stock enforcement program.  Marked ``cuda``: without a
+card, over every head width and query-group size the decode and flash
+kernels take and every stock enforcement program.  Marked ``cuda``: without a
 card these tests skip.  On the card (no JAX there, so skip the JAX
 conftest):
 
@@ -15,6 +15,8 @@ from repro_torch.core import progs as P
 from repro_torch.core import sched as S
 from repro_torch.kernels import decode_attention as A
 from repro_torch.kernels import enforcement as K
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ref as R
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +118,72 @@ def test_custom_program_raises_on_cuda(dev):
     one = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(NotImplementedError, match="Custom"):
         C.charge_batch(st, one, one, 0, (Custom(),))
+
+
+FLASH_SHAPES = [  # B, S, Sk, H, Hkv, d, causal
+    (1, 128, 128, 4, 4, 32, True), (2, 256, 256, 8, 2, 64, True),
+    (1, 128, 128, 6, 2, 80, False), (2, 192, 192, 4, 1, 64, True),
+    (1, 1000, 1000, 8, 2, 128, True), (2, 77, 131, 4, 2, 128, False),
+    (1, 131, 77, 4, 4, 64, True), (1, 64, 64, 24, 8, 128, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Sk,H,hkv,d,causal", FLASH_SHAPES)
+def test_flash_kernels(dev, B, S, Sk, H, hkv, d, causal, dtype):
+    """Forward (out, lse) and backward (dq, dk, dv) against the plain
+    versions b on the same inputs: every element within 2e-5 (1 + |b|)
+    in f32; in bf16 within 2e-2 (rms(b) + |b|), and 1e-2 norm-relative
+    (one bf16 rounding of a large gradient passes, a wrong small value
+    does not)."""
+    g = torch.Generator(device=dev).manual_seed(S * 7 + Sk + d)
+    q = torch.randn(B, S, H, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Sk, hkv, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Sk, hkv, d, generator=g, device=dev).to(dtype)
+    do = torch.randn(B, S, H, d, generator=g, device=dev).to(dtype)
+    before = (FA.flash_fwd.launches, FA.flash_bwd.launches)
+    out, lse = FA.flash_fwd(q, k, v, causal=causal)
+    grads = FA.flash_bwd(q, k, v, out, lse, do, causal=causal)
+    assert (FA.flash_fwd.launches, FA.flash_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_out, want_lse = R.flash_fwd(q, k, v, causal=causal)
+    want = R.flash_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"),
+                          (out, lse) + tuple(grads),
+                          (want_out, want_lse) + tuple(want)):
+        a, b = a.double(), b.double()
+        diff = (a - b).abs()
+        if dtype == torch.float32:
+            assert (diff <= tol * (1 + b.abs())).all(), name
+        else:
+            rms = b.square().mean().sqrt()
+            assert (diff <= tol * (rms + b.abs())).all(), name
+            assert diff.norm() <= 1e-2 * b.norm(), name
+
+
+def test_flash_function_matches_plain_autograd(dev):
+    """The autograd Function on the card against the same Function on the
+    CPU (plain versions) through a loss, f32."""
+    rng = np.random.default_rng(5)
+    q, k, v, w = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  for s in ((2, 96, 6, 64), (2, 96, 2, 64), (2, 96, 2, 64),
+                            (2, 96, 6, 64)))
+    grads = {}
+    for where in ("cpu", dev):
+        leaves = [t.to(where).requires_grad_() for t in (q, k, v)]
+        loss = (FA.flash_attention(*leaves, causal=True) * w.to(where)).sum()
+        grads[str(where)] = [x.cpu() for x in
+                             torch.autograd.grad(loss, leaves)]
+    for a, b in zip(grads["cpu"], grads[str(dev)]):
+        assert (a - b).abs().max().item() <= 2e-5 * max(1.0, a.abs().max())
+
+
+def test_flash_refuses_what_it_cannot_take(dev):
+    q = torch.zeros(1, 16, 4, 96, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_fwd(q, q, q)
+    q = torch.zeros(1, 16, 4, 64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)

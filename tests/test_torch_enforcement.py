@@ -210,20 +210,24 @@ def test_slot_gate_bit_identical(kind, seed):
 
 @pytest.mark.parametrize("kind,seed", [(k, s) for k in
                                        ("weighted_fair", "mixed",
-                                        "graduated") for s in range(3)])
+                                        "graduated", "weighted_fair_frac")
+                                       for s in range(3)])
 def test_schedule_decision_bit_identical(kind, seed):
     """Weighted rounds with inf keys (runnable slots outside the
     weighted scheduler), tied vruntimes, duplicate domains and cpu.max
-    windows; integer ``sched_boost`` values (see ROADMAP Queue 3 for
-    non-integer boosts)."""
+    windows; integer ``sched_boost`` values, and non-integer ones
+    (``weighted_fair_frac``: the weight goes through ``xla_exp2``)."""
     rng = np.random.default_rng(200 + seed)
+    frac = kind == "weighted_fair_frac"
+    kind = "weighted_fair" if frac else kind
     jprogs = programs(kind, JP, 10.0, (np.float32(10), np.float32(10)))
     tprogs = programs(kind, TP, 10.0, (np.float32(10), np.float32(10)))
     step = int(rng.integers(90, 210))
     st, live = random_state(rng, 40, jprogs, step)
     width = st["prog"].shape[1]
     if width >= 6 and kind == "weighted_fair":
-        st["prog"][:, 4] = rng.integers(-1, 3, 40)
+        st["prog"][:, 4] = (rng.uniform(-3, 3, 40) if frac
+                            else rng.integers(-1, 3, 40))
         st["prog"][:, 5] = rng.random(40) < 0.8
     for _ in range(3):
         dom, _ = batch(rng, live, 8)
@@ -263,3 +267,23 @@ def test_custom_program_runs_on_cpu_and_has_no_cuda_form():
     assert g.tolist() == [True, False] and s.tolist() == [False, True]
     with pytest.raises(NotImplementedError, match="BurstCap"):
         TK.kind_codes(progs)
+
+
+def test_xla_exp2_bit_identical():
+    """``xla_exp2`` against XLA's ``jnp.exp2`` on the CPU: 10**6 seeded
+    f32 draws in [-3, 3], a wide sweep, and the edge values (infinities,
+    NaN, signed zero, subnormals, over- and underflow, the clamps)."""
+    rng = np.random.default_rng(2026)
+    edges = np.array([np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-45, -1e-45,
+                      1e-40, 1.0, -1.0, 127.0, 127.99, 128.0, 128.2, -125.5,
+                      -126.0, -126.7, -127.0, -149.0, -150.0, 3.4e38,
+                      -3.4e38], np.float32)
+    exp2 = jax.jit(jnp.exp2)
+    for x in (rng.uniform(-3, 3, 10**6).astype(np.float32),
+              rng.uniform(-200, 200, 10**5).astype(np.float32), edges):
+        want = np.asarray(exp2(x))
+        got = TP.xla_exp2(torch.from_numpy(x)).numpy()
+        assert np.array_equal(got.view(np.int32), want.view(np.int32)) or (
+            np.array_equal(np.isnan(got), np.isnan(want))
+            and np.array_equal(got[~np.isnan(got)].view(np.int32),
+                               want[~np.isnan(want)].view(np.int32)))

@@ -80,7 +80,8 @@ def torch_model(tiny_llama):
     _, params = tiny_llama
     tcfg = dataclasses.replace(t_reduced(t_get_config("llama3.2-3b")),
                                dtype="float32")
-    return tcfg, TM.params_from_jax(jax.tree.map(np.asarray, params), tcfg)
+    return tcfg, TM.params_from_jax(jax.tree.map(np.asarray, params), tcfg,
+                                    device="cpu")
 
 
 @pytest.mark.parametrize("mode", list(MODES))

@@ -26,7 +26,7 @@ def pair(tiny_llama):
     tcfg = dataclasses.replace(t_reduced(t_get_config("llama3.2-3b")),
                                dtype="float32")
     np_tree = jax.tree.map(np.asarray, params)
-    return cfg, params, tcfg, TM.params_from_jax(np_tree, tcfg)
+    return cfg, params, tcfg, TM.params_from_jax(np_tree, tcfg, device="cpu")
 
 
 def test_configs_agree(pair):
@@ -55,7 +55,7 @@ def test_decode_steps_match(pair, n_steps):
     jstate = tree_map_schema(
         lambda l: jnp.zeros(l.shape, jnp.dtype(l.dtype or cfg.dtype)),
         JM.decode_state_schema(cfg, B, S_MAX))
-    tstate = TM.decode_state(tcfg, B, S_MAX)
+    tstate = TM.decode_state(tcfg, B, S_MAX, device="cpu")
     lengths = np.array([0, 5, 17], np.int32)
     step = jax.jit(lambda p, s, t, l: JM.decode_step(cfg, p, s, t, l))
     for _ in range(n_steps):
@@ -79,8 +79,8 @@ def test_init_params_is_seeded_and_shaped(pair):
     _, _, tcfg, tparams = pair
     g1 = torch.Generator().manual_seed(3)
     g2 = torch.Generator().manual_seed(3)
-    a = TM.init_params(tcfg, g1)
-    b = TM.init_params(tcfg, g2)
+    a = TM.init_params(tcfg, g1, device="cpu")
+    b = TM.init_params(tcfg, g2, device="cpu")
     assert torch.equal(a["embed"]["tok"], b["embed"]["tok"])
     assert a["embed"]["tok"].shape == tparams["embed"]["tok"].shape
     assert a["groups"][0]["mixer"]["wq"].shape == \
