@@ -19,7 +19,15 @@ Phases, one JSON line each on standard output:
                  causal, f32 and bf16: every element of out, lse, dq, dk
                  and dv within 2e-5 (1 + |b|) in f32 and 2e-2 (rms(b) +
                  |b|) in bf16, and in bf16 within 1e-2 norm-relative, b
-                 being the plain version's value.  Times from CUDA events.
+                 being the plain version's value; the paged decode at the
+                 same serving shape over a permuted pool of 16-token pages
+                 (-1 table entries past each length), f32 and bf16, and
+                 with 32-token pages and v narrower than k; the SSD scan at
+                 the Jamba prefill's shape (b=1, s=32768, nh=8, dh=1024,
+                 N=16, chunk 256, bf16, B and C strided), in f32 at s=4096,
+                 one chunk, a ragged dh and a steep decay: y within 5e-4
+                 (1 + |b|) in f32 and as the flash checks in bf16, h_final
+                 within 5e-4 (1 + |b|).  Times from CUDA events.
   engine_parity  the reduced f32 llama3.2-3b on the CPU and on the card:
                  decode logits within 1e-4, and the engine's ``report()``
                  identical in inkernel and userspace modes and under the
@@ -41,11 +49,25 @@ Phases, one JSON line each on standard output:
                  AdamW with the cosine schedule, 8 steps (2 untimed):
                  finite losses, the first where random weights put it, and
                  the flash launches the layers imply.
+  prefill_parity the reduced f32 jamba-v0.1-52b (one group: 7 Mamba, 1
+                 attention, 4 MoE layers) forward on the card through the
+                 kernels and on the CPU through their plain versions, from
+                 the same weights and tokens: logits within 1e-4 with the
+                 same argmax, aux within 1e-6.
+  prefill_full   ``models/model.py::forward`` under inference mode on the
+                 full-width jamba-v0.1-52b cut to one 8-layer group (bf16,
+                 random weights from a seeded generator on the card) at
+                 prefill_32k's sequence of 32768, batch 1: one untimed and
+                 3 timed prefills, each through 7 SSD and 1 flash-forward
+                 launches; finite logits and the next-token cross-entropy
+                 where random weights put it.
   profile        (only with ``--phases profile``) ``torch.profiler`` over
                  30 full-width engine steps: device busy and idle time, and
                  the kernels that take it.
   train_profile  (only with ``--phases train_profile``) the same over 2
                  full-width train steps of the train_full configuration.
+  prefill_profile (only with ``--phases prefill_profile``) the same over 2
+                 prefills of the prefill_full configuration.
 
 Then the kernel table (one JSON object), the card's ``name, power.limit``
 as nvidia-smi prints them, and the result line.  Any failed check raises,
@@ -445,6 +467,152 @@ def check_flash(dev, seed: int) -> dict:
     return out
 
 
+SSD_PATH = dict(b=1, s=32768, nh=8, dh=1024, N=16, chunk=256)
+SSD_F32_TOL = 5e-4
+
+
+def _ssd_inputs(g, dev, dtype, b, s, nh, dh, N, chunk, a_scale=0.5,
+                dt_scale=1.0):
+    """x, dt = softplus(randn), A = -exp(a_scale randn), B and C as the
+    two halves of one (b, s, 2N) projection (strided views, as the Mamba
+    block hands them over), D; x/B/C in ``dtype``, the rest f32."""
+    x = torch.randn(b, s, nh, dh, generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, nh, generator=g, device=dev)) * dt_scale
+    A = -torch.exp(torch.randn(nh, generator=g, device=dev) * a_scale)
+    bc = torch.randn(b, s, 2 * N, generator=g, device=dev).to(dtype)
+    D = torch.randn(nh, generator=g, device=dev)
+    return x, dt, A, bc[..., :N], bc[..., N:], D
+
+
+def ssd_close(a, b, dtype) -> dict:
+    """The kernel's ``a`` against the plain ``b``: in f32 every element
+    within 5e-4 (1 + |b|); in bf16 within 2e-2 (rms(b) + |b|) and 1e-2
+    norm-relative (``flash_close``'s bf16 reading)."""
+    if dtype == torch.bfloat16:
+        return flash_close(a, b, dtype)
+    a, b = a.double(), b.double()
+    diff = (a - b).abs()
+    rel = (diff.norm() / b.norm().clamp(min=1e-30)).item()
+    return {"max_abs": diff.max().item(), "norm_rel": rel,
+            "ok": bool((diff <= SSD_F32_TOL * (1 + b.abs())).all())}
+
+
+def check_ssd(dev, seed: int) -> dict:
+    """The SSD scan kernel against its plain version: the prefill path's
+    shape in bf16 (with times and the bound), the same in f32 at s=4096,
+    one chunk, a ragged dh, and a decay steep enough that exp overflows
+    above the diagonal of a chunk.  y as ``ssd_close`` says, the f32
+    h_final within 5e-4 (1 + |b|) in every case."""
+    from repro_torch.kernels import mamba_scan as MS
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cases = [("path_bf16", torch.bfloat16, SSD_PATH, {}),
+             ("path_f32_s4096", torch.float32, dict(SSD_PATH, s=4096), {}),
+             ("one_chunk_f32", torch.float32,
+              dict(b=2, s=128, nh=2, dh=64, N=16, chunk=128), {}),
+             ("ragged_dh_f32", torch.float32,
+              dict(b=1, s=96, nh=3, dh=80, N=4, chunk=32), {}),
+             ("ragged_dh_bf16", torch.bfloat16,
+              dict(b=1, s=96, nh=3, dh=80, N=4, chunk=32), {}),
+             # |dt A| ~ 3 a step: seg spans ~800 over a chunk, so exp of
+             # the upper triangle would overflow many times over, while seg
+             # keeps ~1e-4 of absolute precision
+             ("steep_decay_f32", torch.float32,
+              dict(b=1, s=512, nh=4, dh=128, N=16, chunk=256),
+              dict(dt_scale=4.0))]
+    out = {}
+    for name, dtype, shape, kw in cases:
+        x, dt, A, B, C, D = _ssd_inputs(g, dev, dtype, **shape, **kw)
+        y, h = MS.ssd_scan(x, dt, A, B, C, D, chunk=shape["chunk"])
+        wy, wh = MS.ssd_plain(x, dt, A, B, C, D, chunk=shape["chunk"])
+        torch.cuda.synchronize()
+        errs = {"y": ssd_close(y, wy, dtype),
+                "h": ssd_close(h, wh, torch.float32)}
+        if not all(e["ok"] for e in errs.values()) \
+                or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"ssd {name}: {errs}")
+        out[name] = errs
+    x, dt, A, B, C, D = _ssd_inputs(g, dev, torch.bfloat16, **SSD_PATH)
+    b, s, nh, dh, N, c = (SSD_PATH[k] for k in
+                          ("b", "s", "nh", "dh", "N", "chunk"))
+    ms = cuda_ms(lambda: MS.ssd_scan(x, dt, A, B, C, D, chunk=c), 10, 2)
+    plain = cuda_ms(lambda: MS.ssd_plain(x, dt, A, B, C, D, chunk=c), 3, 1)
+    # bytes: x and y in bf16, dt and dt*A in f32, B and C in bf16, D, the
+    # f32 h_final; operations: the products the Pallas kernel does per
+    # (chunk, head), dense over the chunk: C B^T, M x, C h^T, the state
+    n_bytes = (2 * 2 * b * s * nh * dh + 2 * 4 * b * s * nh
+               + 2 * 2 * b * s * N + 4 * nh + 4 * b * nh * dh * N)
+    n_ops = (s // c) * b * nh * (2 * c * c * N + 2 * c * c * dh
+                                 + 2 * 2 * c * N * dh)
+    out["timing"] = (ms, plain, bound_ms(n_bytes, n_ops, torch.bfloat16),
+                     None)
+    return out
+
+
+PAGED = dict(B=8, H=24, hkv=8, d=128, page=16, s_max=2048)
+
+
+def check_paged(dev, seed: int) -> dict:
+    """The paged decode kernel against its plain version at the serving
+    shape of engine_full (B=8, H=24, Hkv=8, d=128, 16-token pages, the
+    ragged lengths of ``check_decode``), the table a seeded permutation
+    of the pool with -1 past each length, in f32 and bf16 (within 2e-5
+    and 2e-2); then 32-token pages with v narrower than k, and an empty
+    slot.  Times, bound and errors in bf16."""
+    from repro_torch.kernels import decode_attention as A
+
+    B, H, hkv, d, page, s_max = (PAGED[k] for k in
+                                 ("B", "H", "hkv", "d", "page", "s_max"))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.tensor([1, s_max, 37, 256, 257, 1000, 1555, 2047],
+                           dtype=torch.int32, device=dev)
+
+    def table(npp, pg, lens):
+        n_pages = B * npp
+        perm = torch.randperm(n_pages, generator=g, device=dev)
+        tbl = perm.reshape(B, npp).to(torch.int32)
+        first = torch.arange(npp, device=dev)[None] * pg
+        return torch.where(first < lens[:, None], tbl,
+                           torch.full_like(tbl, -1)), n_pages
+
+    out = {}
+    cases = [("f32", torch.float32, page, d, lengths),
+             ("bf16", torch.bfloat16, page, d, lengths),
+             ("f32_page32_dv64", torch.float32, 32, 64,
+              torch.tensor([0, 5, 64, 100, 31, 32, 33, 2048],
+                           dtype=torch.int32, device=dev))]
+    for name, dtype, pg, dv, lens in cases:
+        npp = s_max // pg
+        tbl, n_pages = table(npp, pg, lens)
+        q = torch.randn(B, H, d, generator=g, device=dev).to(dtype)
+        kp = torch.randn(n_pages, pg, hkv, d, generator=g,
+                         device=dev).to(dtype)
+        vp = torch.randn(n_pages, pg, hkv, dv, generator=g,
+                         device=dev).to(dtype)
+        got = A.paged_decode_attention(q, kp, vp, tbl, lens)
+        want = A.paged_decode_attention_plain(q, kp, vp, tbl, lens)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= ATTN_TOL[dtype] or (lens == 0).any() and \
+                bool(got[lens == 0].float().any()):
+            raise AssertionError(f"paged decode {name}: err {err}")
+        out[f"{name}_max_abs_err"] = err
+        if name != "bf16":
+            continue
+        ms = cuda_ms(lambda: A.paged_decode_attention(q, kp, vp, tbl, lens),
+                     200)
+        plain = cuda_ms(lambda: A.paged_decode_attention_plain(
+            q, kp, vp, tbl, lens), 20)
+        live = int(lens.sum())
+        used_pages = int((-(-lens // pg)).sum())
+        n_bytes = (2 * live * hkv * d * 2 + 2 * B * H * d * 2 + B * 4
+                   + used_pages * 4)
+        out["timing"] = (ms, plain, bound_ms(n_bytes, 4 * live * H * d,
+                                             dtype), None)
+    return out
+
+
 # ------------------------------------------------------------------ engine
 
 
@@ -616,8 +784,9 @@ def engine_full(dev, seed: int) -> dict:
     steps = eng.step_no
     report = eng.report()
     want = {"fused_charge_batch": steps, "fused_slot_gate": steps,
-            "decode_attention": cfg.n_layers * steps, "flash_fwd": 0,
-            "flash_bwd": 0}
+            "decode_attention": cfg.n_layers * steps,
+            "paged_decode_attention": 0, "flash_fwd": 0, "flash_bwd": 0,
+            "ssd_scan": 0}
     if counts != want:
         raise AssertionError(f"launches {counts}, expected {want}")
     if report != ref:
@@ -734,6 +903,192 @@ def train_full(dev, seed: int) -> dict:
             "launches": got}
 
 
+JAMBA = "jamba-v0.1-52b"
+# Mamba leaves widened from the schema's std 0.02, so that each Mamba block
+# moves the residual stream (at the schema's scales the gated norm's eps
+# swamps their activations and they add ~1e-5)
+LIVELY = {"in_proj": 5.0, "conv_w": 25.0, "x_to_bc": 6.0, "x_to_dt": 5.0}
+
+
+def lively(cfg, params, seed: int) -> None:
+    """Widen the Mamba leaves of ``params`` in place (CPU tensors)."""
+    g = torch.Generator().manual_seed(seed)
+    for pos, kind in zip(params["groups"], cfg.layer_kinds()):
+        if kind != "mamba":
+            continue
+        mix = pos["mixer"]
+        for name, f in LIVELY.items():
+            mix[name].mul_(f)
+        mix["a_log"].normal_(0.0, 0.5, generator=g)
+        mix["dt_bias"].normal_(0.0, 1.0, generator=g)
+        mix["d_skip"].normal_(1.0, 0.5, generator=g)
+
+
+def prefill_parity(dev, seed: int) -> dict:
+    """The reduced f32 Jamba (one group: 7 Mamba layers, 1 attention, 4
+    MoE) forward on the card through the kernels and on the CPU through
+    their plain versions, from the same weights and tokens: logits within
+    1e-4 with the same argmax, aux within 1e-6."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.perf import DEFAULT_PERF, replace
+
+    cfg = dataclasses.replace(reduced(get_config(JAMBA)), dtype="float32")
+    perf = replace(DEFAULT_PERF, scan_chunk=32)
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                           device="cpu")
+    lively(cfg, params, seed)
+    tokens = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(seed))
+    with torch.inference_mode():
+        want, want_aux = M.forward(cfg, params, {"tokens": tokens},
+                                   perf=perf)
+        gparams = to_device(params, dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got, aux = M.forward(cfg, gparams, {"tokens": tokens.to(dev)},
+                             perf=perf)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    kinds = cfg.layer_kinds()
+    expect = {"ssd_scan": kinds.count("mamba"), "flash_fwd": kinds.count(
+        "attn")}
+    if {k: counts[k] for k in expect} != expect or \
+            sum(counts.values()) != sum(expect.values()):
+        raise AssertionError(f"prefill_parity launches {counts}")
+    err = (got.cpu() - want).abs().max().item()
+    aux_err = abs(float(aux) - float(want_aux))
+    same_argmax = torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
+    if not (err <= 1e-4 and aux_err <= 1e-6 and same_argmax):
+        raise AssertionError(f"prefill parity: logits {err}, aux {aux_err}, "
+                             f"argmax same {same_argmax}")
+    return {"logits_max_abs_err": err, "aux_abs_err": aux_err,
+            "aux": float(want_aux), "launches": expect}
+
+
+PREFILL_LAYERS = 8
+PREFILL_TIMED = 3
+PREFILL_CE_ROWS = 4096
+
+
+def prefill_full(dev, seed: int) -> dict:
+    """``models/model.py::forward`` under ``torch.inference_mode()``, as
+    the reference's ``launch/dryrun.py::prefill_step`` lowers it, on the
+    full-width jamba-v0.1-52b cut to one 8-layer group (7 Mamba, 1
+    attention, MoE every other layer; bf16, random weights from a seeded
+    generator on the card) at prefill_32k's sequence of 32768, batch 1:
+    one untimed prefill, then ``PREFILL_TIMED`` timed ones, each through
+    7 SSD launches and 1 flash-forward launch; finite logits; the mean
+    next-token cross-entropy where random weights put it."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MoE
+    from repro_torch.models.layers import cross_entropy
+    from repro_torch.perf import DEFAULT_PERF
+
+    full = get_config(JAMBA)
+    cfg = dataclasses.replace(full, n_layers=PREFILL_LAYERS)
+    seq = SHAPES["prefill_32k"].seq_len
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    tokens = torch.randint(0, cfg.vocab, (1, seq), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(seed + 1))
+    kinds = cfg.layer_kinds()
+    expect = {"ssd_scan": kinds.count("mamba") * cfg.n_groups,
+              "flash_fwd": kinds.count("attn") * cfg.n_groups}
+    torch.cuda.reset_peak_memory_stats(dev)
+    prefill_s, drops = [], None
+    with torch.inference_mode():
+        for i in range(1 + PREFILL_TIMED):
+            MoE.drop_log = [] if i == 0 else None
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t = time.perf_counter()
+            logits, aux = M.forward(cfg, params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            counts = launch_counts()
+            if {k: counts[k] for k in expect} != expect or \
+                    sum(counts.values()) != sum(expect.values()):
+                raise AssertionError(f"prefill launches {counts}, expected "
+                                     f"{expect}")
+            if i == 0:
+                drops = [int(n) for n in MoE.drop_log]
+                MoE.drop_log = None
+            else:
+                prefill_s.append(dt)
+            if i < PREFILL_TIMED:
+                del logits
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        vocab = cfg.padded_vocab
+        if tuple(logits.shape) != (1, seq, vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError("prefill logits are not finite")
+        # next-token cross-entropy (with the loss's z-loss), in row chunks
+        rows = logits[0, :-1]
+        labels = tokens[0, 1:]
+        total = 0.0
+        for r0 in range(0, rows.shape[0], PREFILL_CE_ROWS):
+            part = rows[r0:r0 + PREFILL_CE_ROWS]
+            n = part.shape[0]
+            total += float(cross_entropy(
+                part[None], labels[None, r0:r0 + n],
+                torch.ones(1, n, device=dev))) * n
+        ce = total / rows.shape[0]
+        del logits, rows
+    # random weights: the untied std-0.02 head against unit-RMS final
+    # activations gives logits of variance d * 0.02**2, so the CE is
+    # ln V + var / 2 plus the 1e-4 z-loss of that log-partition
+    var = cfg.d_model * 0.02 ** 2
+    logz = float(np.log(vocab)) + var / 2
+    ce_expect = logz + 1e-4 * logz ** 2
+    if not abs(ce - ce_expect) <= 0.5:
+        raise AssertionError(f"prefill cross-entropy {ce}, expected "
+                             f"{ce_expect}")
+    # the flash forward alone at the prefill shape, and the library call
+    hd = cfg.head_dim_
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    q = torch.randn(1, seq, cfg.n_heads, hd, generator=g,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(1, seq, cfg.n_kv_heads, hd, generator=g,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    fwd_ms = cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=True), 2, 1)
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), 3, 1)
+    fwd_ops = 4 * seq * seq * cfg.n_heads * hd / 2
+    p50 = statistics.median(prefill_s)
+    return {"config": cfg.name, "layers": cfg.n_layers, "seq": seq,
+            "batch": 1, "params": n_params, "init_s": init_s,
+            "reduced": {"n_layers": f"{full.n_layers} -> {cfg.n_layers}: "
+                        "the 51.4 B parameters are 103 GB in bf16, over the "
+                        "card's 80 GB; one full 7:1 group",
+                        "global_batch": f"{SHAPES['prefill_32k'].global_batch}"
+                        " -> 1: one card"},
+            "prefill_s": prefill_s, "prefill_s_p50": p50,
+            "prefill_s_p95": float(np.percentile(prefill_s, 95)),
+            "tokens_per_s": seq / p50, "peak_memory_gb": peak_gb,
+            "launches_per_prefill": expect,
+            "moe_dropped_per_layer": drops,
+            "moe_capacity": MoE.capacity(cfg, seq,
+                                         DEFAULT_PERF.capacity_factor),
+            "aux": float(aux), "cross_entropy": ce,
+            "cross_entropy_expected": ce_expect,
+            "flash_fwd_prefill_ms": fwd_ms,
+            "flash_fwd_prefill_tflops": fwd_ops / fwd_ms / 1e9,
+            "flash_fwd_prefill_library_ms": lib_ms}
+
+
 def profile_step(dev, seed: int, warm: int = 40, steps: int = 30) -> dict:
     """Where the full-width step's time goes: ``torch.profiler`` over
     ``steps`` engine steps after ``warm`` steps of the engine_full
@@ -791,6 +1146,28 @@ def train_profile(dev, seed: int, warm: int = 1, steps: int = 2) -> dict:
     return _profile(one_step, steps)
 
 
+def prefill_profile(dev, seed: int) -> dict:
+    """Where the prefill_full configuration's time goes:
+    ``torch.profiler`` over 2 prefills after one.  Not part of the
+    default run."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(JAMBA), n_layers=PREFILL_LAYERS)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    tokens = torch.randint(0, cfg.vocab, (1, SHAPES["prefill_32k"].seq_len),
+                           device=dev, generator=torch.Generator(device=dev)
+                           .manual_seed(seed + 1))
+
+    def prefill():
+        with torch.inference_mode():
+            M.forward(cfg, params, {"tokens": tokens})
+
+    prefill()
+    return _profile(prefill, 2)
+
+
 def _profile(step, steps: int) -> dict:
     """``torch.profiler`` over ``steps`` calls of ``step``: wall time,
     device busy time and idle share, and the kernels that take it."""
@@ -841,13 +1218,14 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernels,engine_parity,engine_full,train_parity,"
-                            "train_full",
+                            "train_full,prefill_parity,prefill_full",
                     help="comma-separated phases to run, of kernels, "
                          "engine_parity, engine_full, train_parity, "
-                         "train_full, and profile and train_profile (not "
-                         "in the default run); "
-                         "the result line is printed only when kernels, "
-                         "engine_full and train_full ran")
+                         "train_full, prefill_parity, prefill_full, and "
+                         "profile, train_profile and prefill_profile (not "
+                         "in the default run); the result line is printed "
+                         "only when kernels, engine_full, train_full and "
+                         "prefill_full ran")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -882,10 +1260,13 @@ def main() -> None:
         enf = check_enforcement(dev, args.seed)
         tim = time_enforcement(dev, args.seed)
         dec = check_decode(dev, args.seed)
+        pag = check_paged(dev, args.seed)
         fla = check_flash(dev, args.seed)
+        ssd = check_ssd(dev, args.seed)
         emit({"phase": "kernels", "card": card, "enforcement": enf,
               "enforcement_times": tim, "decode_attention": dec,
-              "flash_attention": fla})
+              "paged_decode_attention": pag, "flash_attention": fla,
+              "ssd_scan": ssd})
         rows = {
             "fused_charge_batch": dict(
                 source="src/repro_torch/csrc/enforcement.cu",
@@ -901,6 +1282,10 @@ def main() -> None:
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:87",
                 max_abs_err=dec["bf16_max_abs_err"], timing=dec["timing"]),
+            "paged_decode_attention": dict(
+                source="src/repro_torch/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:166",
+                max_abs_err=pag["bf16_max_abs_err"], timing=pag["timing"]),
         }
         for name, parts in (("flash_fwd", ("out", "lse")),
                             ("flash_bwd", ("dq", "dk", "dv"))):
@@ -913,6 +1298,14 @@ def main() -> None:
                 max_abs_err=max(e["max_abs"] for e in errs),
                 norm_rel_err=max(e["norm_rel"] for e in errs),
                 timing=fla["timing"][name])
+        ssd_errs = [e[k] for case, e in ssd.items() if case != "timing"
+                    for k in ("y", "h")]
+        rows["ssd_scan"] = dict(
+            source="src/repro_torch/csrc/mamba_scan.cu",
+            replaces="src/repro/kernels/mamba_scan.py:88",
+            max_abs_err=max(e["max_abs"] for e in ssd_errs),
+            norm_rel_err=max(e["norm_rel"] for e in ssd_errs),
+            timing=ssd["timing"])
     if "engine_parity" in phases:
         emit({"phase": "engine_parity", "card": card,
               **engine_parity(dev, args.seed)})
@@ -927,15 +1320,26 @@ def main() -> None:
     if "train_full" in phases:
         train = train_full(dev, args.seed)
         emit({"phase": "train_full", "card": card, **train})
+    if "prefill_parity" in phases:
+        emit({"phase": "prefill_parity", "card": card,
+              **prefill_parity(dev, args.seed)})
+    prefill = None
+    if "prefill_full" in phases:
+        prefill = prefill_full(dev, args.seed)
+        emit({"phase": "prefill_full", "card": card, **prefill})
     if "profile" in phases:
         emit({"phase": "profile", "card": card,
               **profile_step(dev, args.seed)})
     if "train_profile" in phases:
         emit({"phase": "train_profile", "card": card,
               **train_profile(dev, args.seed)})
-    if rows is None or full is None or train is None:
+    if "prefill_profile" in phases:
+        emit({"phase": "prefill_profile", "card": card,
+              **prefill_profile(dev, args.seed)})
+    if rows is None or full is None or train is None or prefill is None:
         return
-    launches = dict(full["launches"], **train["launches"])
+    launches = dict(full["launches"], **train["launches"],
+                    ssd_scan=prefill["launches_per_prefill"]["ssd_scan"])
     table = []
     for name, r in rows.items():
         ms, plain, (bnd, by), lib = r["timing"]

@@ -1,11 +1,16 @@
-// One-token GQA flash-decoding over a dense per-slot KV cache, for sm_90a.
+// One-token GQA flash-decoding over a dense per-slot KV cache or a paged
+// pool, for sm_90a.
 //
-// Replaces the Pallas kernel of the JAX package
+// Replaces the Pallas kernels of the JAX package
 //   repro/kernels/decode_attention.py::decode_attention_pallas (_dense_kernel)
+//   repro/kernels/decode_attention.py::paged_decode_attention_pallas
+//     (_paged_kernel)
 //
-// q (B, H, d) attends the cache k/v (B, S_max, Hkv, d) at positions
-// < lengths[b]; out (B, H, d) = acc / max(l, 1e-30) from an f32 online
-// softmax (m, l, acc), f32 or bf16 storage.
+// q (B, H, dk) attends the cache k/v (B, S_max, Hkv, d), or the pages
+// page_table[b, t / page] of a pool (n_pages, page, Hkv, d), at positions
+// < lengths[b]; out (B, H, dv) = acc / max(l, 1e-30) from an f32 online
+// softmax (m, l, acc), f32 or bf16 storage.  The two layouts differ only in
+// where row t lies (struct Rows); the paged form also takes dk != dv.
 //
 // What bounds it: bytes.  Each cached K and V row is read once (2 * len *
 // Hkv * d * bytes per slot) and used for G = H / Hkv heads: about 2 * G
@@ -65,40 +70,62 @@ struct Io<__nv_bfloat16> {
   __device__ static __nv_bfloat16 store(float x) { return __float2bfloat16(x); }
 };
 
-template <typename T, int D, int GMAX>
+// Where cached row t of slot b lies, in rows of (Hkv, d): a dense cache
+// holds slot b's rows at b * cap + t; a paged pool holds them in page
+// tbl[b, t / page].  Only rows t < lengths[b] are asked for, so a table
+// entry of a page that starts at or past the length is never read.
+struct Rows {
+  const int32_t* tbl;   // (B, npp) page table, or nullptr for a dense cache
+  int npp;
+  int page;
+  int cap;              // S_max, or npp * page
+  __device__ size_t at(int b, int t) const {
+    if (tbl == nullptr) return static_cast<size_t>(b) * cap + t;
+    return static_cast<size_t>(tbl[b * npp + t / page]) * page + t % page;
+  }
+};
+
+template <typename T, int DK, int DV, int GMAX>
 __global__ void __launch_bounds__(kThreads)
 split_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int32_t* __restrict__ lengths,
-             float* __restrict__ part_acc, float* __restrict__ part_ml,
-             int Hkv, int S_max, int G, int chunk, int n_split, float scale) {
+             Rows rows, float* __restrict__ part_acc,
+             float* __restrict__ part_ml, int Hkv, int G, int chunk,
+             int n_split, float scale) {
   constexpr int kVec = Io<T>::kVec;
-  constexpr int kLanes = D / kVec;             // lanes that share one row
-  constexpr int kRows = kThreads / kLanes;     // rows in flight per pass
-  static_assert(kLanes <= 32 && 32 % kLanes == 0, "row group within a warp");
-  static_assert(kTile % kRows == 0, "tile covers whole passes");
+  constexpr int kLanesK = DK / kVec;           // lanes that share a K row
+  constexpr int kRowsK = kThreads / kLanesK;   // K rows in flight per pass
+  constexpr int kLanesV = DV / kVec;
+  constexpr int kRowsV = kThreads / kLanesV;
+  static_assert(kLanesK <= 32 && 32 % kLanesK == 0, "row group in a warp");
+  static_assert(kLanesV <= 32 && 32 % kLanesV == 0, "row group in a warp");
+  static_assert(kTile % kRowsK == 0 && kTile % kRowsV == 0,
+                "tile covers whole passes");
 
   __shared__ float scores[GMAX][kTile];
-  __shared__ float red[kRows * GMAX * D];
+  __shared__ float red[kRowsV * GMAX * DV];
 
   const int split = blockIdx.x;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  const int len = min(lengths[b], S_max);
+  const int len = min(lengths[b], rows.cap);
   const int start = split * chunk;
   const int end = min(start + chunk, len);
   if (start >= end) return;   // the combine pass reads no partial here
 
   const int tid = threadIdx.x;
-  const int row = tid / kLanes;
-  const int lane = tid % kLanes;
+  const int rowk = tid / kLanesK;
+  const int lanek = tid % kLanesK;
+  const int rowv = tid / kLanesV;
+  const int lanev = tid % kLanesV;
   const int H = Hkv * G;
 
   float qf[GMAX][kVec];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     if (g < G) {
-      Io<T>::load(q + (static_cast<size_t>(b) * H + kvh * G + g) * D +
-                      lane * kVec, qf[g]);
+      Io<T>::load(q + (static_cast<size_t>(b) * H + kvh * G + g) * DK +
+                      lanek * kVec, qf[g]);
 #pragma unroll
       for (int j = 0; j < kVec; ++j) qf[g][j] *= scale;
     } else {
@@ -116,20 +143,19 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kVec; ++j) acc[g][j] = 0.0f;
   }
 
-  const size_t row_stride = static_cast<size_t>(Hkv) * D;
-  const T* kbase = k + static_cast<size_t>(b) * S_max * row_stride + kvh * D;
-  const T* vbase = v + static_cast<size_t>(b) * S_max * row_stride + kvh * D;
+  const T* kbase = k + static_cast<size_t>(kvh) * DK;
+  const T* vbase = v + static_cast<size_t>(kvh) * DV;
 
   for (int t0 = start; t0 < end; t0 += kTile) {
     // scores of this tile: one row group per key, reduced across lanes
-    for (int r = row; r < kTile; r += kRows) {
+    for (int r = rowk; r < kTile; r += kRowsK) {
       const int t = t0 + r;
       float part[GMAX];
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) part[g] = 0.0f;
       if (t < end) {
         float kf[kVec];
-        Io<T>::load(kbase + t * row_stride + lane * kVec, kf);
+        Io<T>::load(kbase + rows.at(b, t) * Hkv * DK + lanek * kVec, kf);
 #pragma unroll
         for (int g = 0; g < GMAX; ++g)
 #pragma unroll
@@ -138,9 +164,9 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int g = 0; g < GMAX; ++g)
 #pragma unroll
-        for (int off = kLanes / 2; off > 0; off >>= 1)
+        for (int off = kLanesK / 2; off > 0; off >>= 1)
           part[g] += __shfl_xor_sync(0xffffffffu, part[g], off);
-      if (lane == 0) {
+      if (lanek == 0) {
 #pragma unroll
         for (int g = 0; g < GMAX; ++g)
           if (g < G) scores[g][r] = t < end ? part[g] : -INFINITY;
@@ -184,11 +210,11 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kVec; ++j) acc[g][j] *= alpha[g];
     }
     // P.V: each row group accumulates its own rows of the tile
-    for (int r = row; r < kTile; r += kRows) {
+    for (int r = rowv; r < kTile; r += kRowsV) {
       const int t = t0 + r;
       if (t >= end) break;
       float vf[kVec];
-      Io<T>::load(vbase + t * row_stride + lane * kVec, vf);
+      Io<T>::load(vbase + rows.at(b, t) * Hkv * DV + lanev * kVec, vf);
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
         if (g < G) {
@@ -207,15 +233,15 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (g < G)
 #pragma unroll
       for (int j = 0; j < kVec; ++j)
-        red[(row * GMAX + g) * D + lane * kVec + j] = acc[g][j];
+        red[(rowv * GMAX + g) * DV + lanev * kVec + j] = acc[g][j];
   __syncthreads();
   const size_t part = (static_cast<size_t>(b) * Hkv + kvh) * n_split + split;
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D;
-    const int dd = i % D;
+  for (int i = tid; i < G * DV; i += kThreads) {
+    const int g = i / DV;
+    const int dd = i % DV;
     float s = 0.0f;
-    for (int r = 0; r < kRows; ++r) s += red[(r * GMAX + g) * D + dd];
-    part_acc[(part * G + g) * D + dd] = s;
+    for (int r = 0; r < kRowsV; ++r) s += red[(r * GMAX + g) * DV + dd];
+    part_acc[(part * G + g) * DV + dd] = s;
   }
   if (tid < G) {
     float mg = 0.0f, lg = 0.0f;
@@ -236,14 +262,14 @@ __global__ void combine_kernel(const float* __restrict__ part_acc,
                                const float* __restrict__ part_ml,
                                const int32_t* __restrict__ lengths,
                                T* __restrict__ out, int H, int Hkv,
-                               int S_max, int chunk, int n_split) {
+                               int cap, int chunk, int n_split) {
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
   const int G = H / Hkv;
   const int kvh = h / G;
   const int g = h % G;
-  const int len = min(lengths[b], S_max);
+  const int len = min(lengths[b], cap);
   const int used = (len + chunk - 1) / chunk;
   const size_t base = (static_cast<size_t>(b) * Hkv + kvh) * n_split;
   float m_all = -INFINITY;
@@ -261,63 +287,78 @@ __global__ void combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
-template <typename T, int D, int GMAX>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int32_t* lengths, void* out, float* part_acc,
-                   float* part_ml, int B, int H, int Hkv, int S_max,
-                   int chunk, int n_split, float scale, cudaStream_t stream) {
-  const int G = H / Hkv;
-  split_kernel<T, D, GMAX><<<dim3(n_split, Hkv, B), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, part_acc, part_ml, Hkv, S_max, G,
-      chunk, n_split, scale);
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int32_t* lengths;
+  Rows rows;
+  void* out;
+  float* part_acc;
+  float* part_ml;
+  int B, H, Hkv, chunk, n_split;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int DK, int DV, int GMAX>
+cudaError_t launch(const Args& a) {
+  const int G = a.H / a.Hkv;
+  split_kernel<T, DK, DV, GMAX>
+      <<<dim3(a.n_split, a.Hkv, a.B), kThreads, 0, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), a.lengths, a.rows, a.part_acc,
+          a.part_ml, a.Hkv, G, a.chunk, a.n_split, a.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  combine_kernel<T, D><<<B * H, D < 128 ? D : 128, 0, stream>>>(
-      part_acc, part_ml, lengths, static_cast<T*>(out), H, Hkv, S_max, chunk,
-      n_split);
+  combine_kernel<T, DV><<<a.B * a.H, DV < 128 ? DV : 128, 0, a.stream>>>(
+      a.part_acc, a.part_ml, a.lengths, static_cast<T*>(a.out), a.H, a.Hkv,
+      a.rows.cap, a.chunk, a.n_split);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t by_group(int G, const void* q, const void* k, const void* v,
-                     const int32_t* lengths, void* out, float* part_acc,
-                     float* part_ml, int B, int H, int Hkv, int S_max,
-                     int chunk, int n_split, float scale,
-                     cudaStream_t stream) {
-  if (G <= 1)
-    return launch<T, D, 1>(q, k, v, lengths, out, part_acc, part_ml, B, H,
-                           Hkv, S_max, chunk, n_split, scale, stream);
-  if (G <= 2)
-    return launch<T, D, 2>(q, k, v, lengths, out, part_acc, part_ml, B, H,
-                           Hkv, S_max, chunk, n_split, scale, stream);
-  if (G <= 4)
-    return launch<T, D, 4>(q, k, v, lengths, out, part_acc, part_ml, B, H,
-                           Hkv, S_max, chunk, n_split, scale, stream);
-  if (G <= 8)
-    return launch<T, D, 8>(q, k, v, lengths, out, part_acc, part_ml, B, H,
-                           Hkv, S_max, chunk, n_split, scale, stream);
-  return cudaErrorInvalidValue;
+template <typename T, int DK, int DV>
+cudaError_t by_group(const Args& a) {
+  const int G = a.H / a.Hkv;
+  if (G > 8) return cudaErrorInvalidValue;
+  if constexpr (DK != DV) {
+    // unequal widths (paged only) take one group size, to bound the build
+    return launch<T, DK, DV, 8>(a);
+  } else {
+    if (G <= 1) return launch<T, DK, DV, 1>(a);
+    if (G <= 2) return launch<T, DK, DV, 2>(a);
+    if (G <= 4) return launch<T, DK, DV, 4>(a);
+    return launch<T, DK, DV, 8>(a);
+  }
+}
+
+template <typename T, int DK>
+cudaError_t by_dv(int DV, const Args& a) {
+  switch (DV) {
+    case 32: return by_group<T, DK, 32>(a);
+    case 64: return by_group<T, DK, 64>(a);
+    case 128: return by_group<T, DK, 128>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-cudaError_t by_dim(int D, int G, const void* q, const void* k, const void* v,
-                   const int32_t* lengths, void* out, float* part_acc,
-                   float* part_ml, int B, int H, int Hkv, int S_max,
-                   int chunk, int n_split, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return by_group<T, 32>(G, q, k, v, lengths, out, part_acc, part_ml, B,
-                             H, Hkv, S_max, chunk, n_split, scale, stream);
-    case 64:
-      return by_group<T, 64>(G, q, k, v, lengths, out, part_acc, part_ml, B,
-                             H, Hkv, S_max, chunk, n_split, scale, stream);
-    case 128:
-      return by_group<T, 128>(G, q, k, v, lengths, out, part_acc, part_ml, B,
-                              H, Hkv, S_max, chunk, n_split, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+cudaError_t by_dims(int DK, int DV, const Args& a) {
+  switch (DK) {
+    case 32: return by_dv<T, 32>(DV, a);
+    case 64: return by_dv<T, 64>(DV, a);
+    case 128: return by_dv<T, 128>(DV, a);
+    default: return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t dispatch(int dtype, int DK, int DV, const Args& a) {
+  if (a.B == 0) return cudaSuccess;
+  if (a.Hkv <= 0 || a.H % a.Hkv != 0 || a.chunk % kTile != 0)
+    return cudaErrorInvalidValue;
+  if (dtype == 0) return by_dims<float>(DK, DV, a);
+  if (dtype == 1) return by_dims<__nv_bfloat16>(DK, DV, a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -330,16 +371,23 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int Hkv, int S_max, int D, int dtype,
                                 int chunk, int n_split, float scale,
                                 void* stream) {
-  if (B == 0) return cudaSuccess;
-  if (Hkv <= 0 || H % Hkv != 0 || chunk % kTile != 0) return cudaErrorInvalidValue;
-  const int G = H / Hkv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return by_dim<float>(D, G, q, k, v, lengths, out, part_acc, part_ml, B, H,
-                         Hkv, S_max, chunk, n_split, scale, s);
-  if (dtype == 1)
-    return by_dim<__nv_bfloat16>(D, G, q, k, v, lengths, out, part_acc,
-                                 part_ml, B, H, Hkv, S_max, chunk, n_split,
-                                 scale, s);
-  return cudaErrorInvalidValue;
+  const Args a{q, k, v, lengths, Rows{nullptr, 0, 0, S_max}, out, part_acc,
+               part_ml, B, H, Hkv, chunk, n_split, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, D, D, a);
+}
+
+// The same over a paged pool: k (n_pages, page, Hkv, DK), v (n_pages,
+// page, Hkv, DV), page_table (B, npp) int32.  part_acc holds
+// B*Hkv*n_split*G*DV floats.
+extern "C" int paged_decode_attention(
+    const void* q, const void* k, const void* v, const int32_t* page_table,
+    const int32_t* lengths, void* out, float* part_acc, float* part_ml,
+    int B, int H, int Hkv, int npp, int page, int DK, int DV, int dtype,
+    int chunk, int n_split, float scale, void* stream) {
+  if (page <= 0) return cudaErrorInvalidValue;
+  const Args a{q, k, v, lengths, Rows{page_table, npp, page, npp * page},
+               out, part_acc, part_ml, B, H, Hkv, chunk, n_split, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, DK, DV, a);
 }

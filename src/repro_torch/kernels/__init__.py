@@ -2,9 +2,12 @@
 
   enforcement       — fused hierarchical charge and slot gate
                       (csrc/enforcement.cu)
-  decode_attention  — one-token GQA flash-decoding (csrc/decode_attention.cu)
+  decode_attention  — one-token GQA flash-decoding over a dense or a paged
+                      cache (csrc/decode_attention.cu)
   flash_attention   — full-sequence flash forward and backward, joined in
                       an autograd Function (csrc/flash_attention.cu)
+  mamba_scan        — the chunked SSD (Mamba-2) scan forward
+                      (csrc/mamba_scan.cu)
   ref               — plain torch oracles
   ops               — the per-op entry points the models call
 
@@ -15,14 +18,18 @@ from __future__ import annotations
 
 
 def _wrappers() -> dict:
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, paged_decode_attention)
     from repro_torch.kernels.enforcement import (fused_charge_batch,
                                                  fused_slot_gate)
     from repro_torch.kernels.flash_attention import flash_bwd, flash_fwd
+    from repro_torch.kernels.mamba_scan import ssd_scan
     return {"fused_charge_batch": fused_charge_batch,
             "fused_slot_gate": fused_slot_gate,
             "decode_attention": decode_attention,
-            "flash_fwd": flash_fwd, "flash_bwd": flash_bwd}
+            "paged_decode_attention": paged_decode_attention,
+            "flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
+            "ssd_scan": ssd_scan}
 
 
 def launch_counts() -> dict:

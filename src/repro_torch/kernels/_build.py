@@ -27,7 +27,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # per-source extra flags: the enforcement kernels must not contract
 # multiply-adds behind the decision code's back (see the source note)
 EXTRA_FLAGS = {"enforcement": ["--fmad=false"], "decode_attention": [],
-               "flash_attention": []}
+               "flash_attention": [], "mamba_scan": []}
 
 _loaded: dict = {}
 

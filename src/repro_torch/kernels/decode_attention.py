@@ -1,18 +1,23 @@
 """Single-token GQA decode attention (flash-decoding) on Hopper.
 
 Port of ``repro/kernels/decode_attention.py::decode_attention_pallas``
-(the dense per-slot cache; the paged variant waits for a later slice) as
+(the dense per-slot cache) and ``paged_decode_attention_pallas`` (a
+paged pool, ``page_table[b, j]`` naming the page of key block ``j``) as
 CUDA C++ in ``csrc/decode_attention.cu``: one CTA per (S-split, kv head,
 slot) streams its K/V rows once with 16-byte loads under an f32 online
-softmax, and a second pass merges the splits.  The source note there
-says what bounds it (bytes: ~2*G flops per cached byte) and how the
-design answers it.
+softmax, and a second pass merges the splits; the two layouts differ
+only in where a row lies.  The source note there says what bounds it
+(bytes: ~2*G flops per cached byte) and how the design answers it.
 
-``decode_attention_plain`` is the plain torch version: the wrapper takes
-it only for CPU tensors; CUDA tensors launch the kernel or raise.  Both
-mask positions ``>= lengths[b]`` (so a ragged ``S_max`` needs no block
-multiple) and give 0 for a slot with no live position, as the Pallas
-kernel does.
+``decode_attention_plain`` and ``paged_decode_attention_plain`` are the
+plain torch versions: the wrappers take them only for CPU tensors; CUDA
+tensors launch the kernel or raise.  All mask positions
+``>= lengths[b]`` (so a ragged ``S_max`` needs no block multiple) and
+give 0 for a slot with no live position, as the Pallas kernels do.  The
+paged forms never read the table entry of a page that starts at or past
+``lengths[b]`` (such entries may hold -1).  The paged decode lies on no
+path of the engine, which decodes from dense slot caches (ROADMAP Queue
+2 item 4).
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 SPLIT = 256          # keys per CTA; a multiple of the kernel's 64-key tile
 HEAD_DIMS = (32, 64, 128)
@@ -63,29 +68,90 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
 decode_attention.launches = 0
 
 
+def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths,
+                                 *, scale: Optional[float] = None):
+    """q (B,H,dk), pools (n_pages,page,Hkv,d), page_table (B,npp) int,
+    lengths (B,) -> (B,H,dv): each slot's live pages gathered into a
+    dense row, then ``decode_attention_plain``."""
+    kc, vc = ref.gather_pages(k_pages, v_pages, page_table, lengths)
+    return decode_attention_plain(q, kc, vc, lengths, scale=scale)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
+                           scale: Optional[float] = None):
+    """Paged-pool single-token decode: the CUDA kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    if not q.is_cuda:
+        return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
+                                            lengths, scale=scale)
+    return _launch_paged(q, k_pages, v_pages, page_table, lengths, scale)
+
+
+paged_decode_attention.launches = 0
+
+
+def _check_common(q, k, v, lengths, H, hkv):
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"decode attention takes f32 or bf16 q/k/v of one "
+                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if H % hkv or H // hkv > MAX_GROUP:
+        raise ValueError(f"{H} query heads over {hkv} kv heads: the kernel "
+                         f"takes up to {MAX_GROUP} a group")
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != q.shape[:1]:
+        raise ValueError("lengths must be int32 (B,)")
+    for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"tensor on {q.device}")
+
+
+def _launch_paged(q, k_pages, v_pages, page_table, lengths, scale):
+    B, H, dk = q.shape
+    _, page, hkv, dv = v_pages.shape
+    npp = page_table.shape[1]
+    if dk not in HEAD_DIMS or dv not in HEAD_DIMS:
+        raise ValueError(f"head dims {dk}/{dv}: the kernel takes q/k and v "
+                         f"widths in {HEAD_DIMS}")
+    if tuple(k_pages.shape) != (v_pages.shape[0], page, hkv, dk) \
+            or tuple(page_table.shape) != (B, npp):
+        raise ValueError(f"shapes q {tuple(q.shape)} k "
+                         f"{tuple(k_pages.shape)} v {tuple(v_pages.shape)} "
+                         f"page_table {tuple(page_table.shape)}")
+    _check_common(q, k_pages, v_pages, lengths, H, hkv)
+    if page_table.dtype != torch.int32 or page_table.device != q.device \
+            or not page_table.is_contiguous():
+        raise ValueError(f"page_table must be a contiguous int32 tensor on "
+                         f"{q.device}")
+    dev = q.device
+    g = H // hkv
+    n_split = max(1, -(-(npp * page) // SPLIT))
+    out = torch.empty(B, H, dv, dtype=q.dtype, device=dev)
+    part_acc = torch.empty(B * hkv * n_split * g * dv, dtype=torch.float32,
+                           device=dev)
+    part_ml = torch.empty(B * hkv * n_split * g * 2, dtype=torch.float32,
+                          device=dev)
+    err = _lib().paged_decode_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), B, H, hkv, npp, page, dk,
+        dv, _DTYPES[q.dtype], SPLIT, n_split, float(scale or dk ** -0.5),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
 def _launch(q, k_cache, v_cache, lengths, scale):
     B, H, dk = q.shape
     _, S_max, hkv, dv = v_cache.shape
     dev = q.device
-    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
-            or v_cache.dtype != q.dtype:
-        raise ValueError(f"decode_attention takes f32 or bf16 q/k/v of one "
-                         f"dtype, got {q.dtype}/{k_cache.dtype}/"
-                         f"{v_cache.dtype}")
     if dk != dv or dk not in HEAD_DIMS:
         raise ValueError(f"head dims {dk}/{dv}: the kernel takes equal q/k "
                          f"and v widths in {HEAD_DIMS}")
-    if tuple(k_cache.shape) != (B, S_max, hkv, dk) or H % hkv \
-            or H // hkv > MAX_GROUP:
+    if tuple(k_cache.shape) != (B, S_max, hkv, dk):
         raise ValueError(f"shapes q {tuple(q.shape)} k "
                          f"{tuple(k_cache.shape)} v {tuple(v_cache.shape)}")
-    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,):
-        raise ValueError("lengths must be int32 (B,)")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("lengths", lengths)):
-        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"tensor on {dev}")
+    _check_common(q, k_cache, v_cache, lengths, H, hkv)
     g = H // hkv
     n_split = max(1, -(-S_max // SPLIT))
     out = torch.empty_like(q)
@@ -111,4 +177,7 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P] * 7 + [I] * 8 + [ctypes.c_float, P]
         fn.restype = I
+        paged = lib.paged_decode_attention
+        paged.argtypes = [P] * 8 + [I] * 10 + [ctypes.c_float, P]
+        paged.restype = I
     return lib

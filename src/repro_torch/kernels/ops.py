@@ -3,7 +3,8 @@
 The reference picks an implementation per call (``impl=``, Pallas on a
 TPU, blockwise elsewhere).  The port has one entry per op whose kernel
 wrapper decides by the tensors' device: the hand-written CUDA kernel for
-CUDA tensors, the plain torch version for CPU tensors.
+CUDA tensors, the plain torch version for CPU tensors.  The one-token
+SSD step has no kernel in the reference either: it is plain torch code.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from typing import Optional
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mamba_scan as _ssd
+from repro_torch.kernels import ref
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *,
@@ -20,8 +23,25 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
                                     scale=scale)
 
 
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
+                           scale: Optional[float] = None):
+    """Paged-pool single-token decode (no caller in the engine yet)."""
+    return _decode.paged_decode_attention(q, k_pages, v_pages, page_table,
+                                          lengths, scale=scale)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None):
     """Full-sequence attention (train / prefill), differentiable: the
     hand-written flash forward and two-pass backward."""
     return _flash.flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+def ssd(x, dt, A, B, C, D, *, chunk: int = 256, h0=None):
+    """The full-sequence SSD scan -> (y, h_final f32)."""
+    return _ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+
+
+def ssd_decode(h, x, dt, A, B, C, D):
+    """One-token SSD update -> (y, h_new f32)."""
+    return ref.ssd_decode_step(h, x, dt, A, B, C, D)

@@ -1,12 +1,14 @@
 """Plain torch oracles for the port's kernels (``repro/kernels/ref.py``).
 
-Ported so far: the decode-attention oracle, the naive attention oracle
-and the blockwise flash forward and two-pass backward that the CUDA
-flash kernels are held against.  The paged decode, SSD and mLSTM
-oracles come with their kernels (ROADMAP Queue 2).
+Ported: the dense and paged decode-attention oracles, the naive
+attention oracle, the blockwise flash forward and two-pass backward that
+the CUDA flash kernels are held against, and the SSD (Mamba-2) oracles:
+the sequential scan, the chunked scan and the one-token decode step.
+The mLSTM oracles wait for the xLSTM family (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -53,6 +55,32 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, *,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(B, H, dv).to(q.dtype)
+
+
+def gather_pages(k_pages, v_pages, page_table, lengths):
+    """Each slot's pages of a pool (n_pages, page, Hkv, d) as a dense
+    cache (B, npp * page, Hkv, d).  Entries of pages that start at or past
+    ``lengths[b]`` are never dereferenced (they may hold -1): page 0
+    stands in for them, and the length mask hides it."""
+    B, npp = page_table.shape
+    page = k_pages.shape[1]
+    first = torch.arange(npp, device=page_table.device)[None] * page
+    tbl = torch.where(first < lengths[:, None], page_table.long(),
+                      torch.zeros((), dtype=torch.long,
+                                  device=page_table.device))
+    return (k_pages[tbl].reshape(B, npp * page, *k_pages.shape[2:]),
+            v_pages[tbl].reshape(B, npp * page, *v_pages.shape[2:]))
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
+                               scale: Optional[float] = None,
+                               block_s: int = 2048):
+    """Paged decode oracle: gathers each sequence's pages, then
+    ``decode_attention_ref``.  q:(B,H,dk); k_pages/v_pages:(n_pages, page,
+    Hkv, d); page_table:(B, pages_per_seq)."""
+    kc, vc = gather_pages(k_pages, v_pages, page_table, lengths)
+    return decode_attention_ref(q, kc, vc, lengths, scale=scale,
+                                block_s=min(block_s, kc.shape[1]))
 
 
 # ----------------------------------------------------------- attention
@@ -218,3 +246,83 @@ def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     dk = torch.cat(dks, dim=1).to(k.dtype)
     dv = torch.cat(dvs, dim=1).to(v.dtype)
     return dq.to(q.dtype), dk, dv
+
+
+# ---------------------------------------------------------------- SSD
+
+
+def ssd_sequential(x, dt, A, B, C, D, *, h0=None):
+    """Sequential SSD oracle (a loop over time), the reference's
+    ``ssd_sequential``.  x:(b,s,nh,dh) dt:(b,s,nh) A:(nh,) B,C:(b,s,N)
+    D:(nh,).  Returns y:(b,s,nh,dh) in x's dtype and h_final:(b,nh,dh,N)
+    f32.  h_t = exp(dt*A) h + dt (x_t outer B_t);  y_t = h_t C_t + D x_t."""
+    b, s, nh, dh = x.shape
+    N = B.shape[-1]
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
+    Af = A.float()
+    h = (torch.zeros(b, nh, dh, N, dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * Af[None])                 # (b,nh)
+        h = h * decay[..., None, None] + (
+            dtf[:, t, :, None, None] * xf[:, t, ..., None]
+            * Bf[:, t, None, None, :])
+        ys.append(torch.einsum("bhdn,bn->bhd", h, Cf[:, t]))
+    y = torch.stack(ys, 1) + D.float()[None, None, :, None] * xf
+    return y.to(x.dtype), h
+
+
+def ssd_chunked(x, dt, A, B, C, D, *, chunk: int = 256, h0=None):
+    """Chunked SSD, the reference's ``ssd_chunked``: a loop over chunks
+    carrying the (b, nh, dh, N) state, with ``exp((seg_i - seg_j) * A)``
+    formed after the cumsum of dt (the Pallas kernel multiplies by A
+    before the cumsum; see ``kernels/mamba_scan.py``)."""
+    b, s, nh, dh = x.shape
+    N = B.shape[-1]
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {c}")
+    nc = s // c
+    xf = x.float().reshape(b, nc, c, nh, dh)
+    dtf = dt.float().reshape(b, nc, c, nh)
+    Bf = B.float().reshape(b, nc, c, N)
+    Cf = C.float().reshape(b, nc, c, N)
+    Af = A.float()
+    causal = torch.ones(c, c, dtype=torch.bool, device=x.device).tril()
+    h = (torch.zeros(b, nh, dh, N, dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for z in range(nc):
+        xz, dtz, Bz, Cz = xf[:, z], dtf[:, z], Bf[:, z], Cf[:, z]
+        seg = torch.cumsum(dtz, 1)                             # (b,c,nh)
+        tot = seg[:, -1:]
+        dec_to_end = torch.exp((tot - seg) * Af)
+        dec_from_start = torch.exp(seg * Af)
+        y_cross = torch.einsum("bcn,bch,bhdn->bchd", Cz, dec_from_start, h)
+        # masked before exp: the upper triangle of rel * A overflows
+        rel = (seg[:, :, None, :] - seg[:, None, :, :]) * Af   # (b,i,j,nh)
+        decm = torch.exp(torch.where(causal[None, :, :, None], rel,
+                                     torch.full_like(rel, -math.inf)))
+        cb = torch.einsum("bin,bjn->bij", Cz, Bz)
+        m = cb[..., None] * decm * dtz[:, None]
+        ys.append(torch.einsum("bijh,bjhd->bihd", m, xz) + y_cross)
+        w = dtz * dec_to_end
+        states = torch.einsum("bch,bchd,bcn->bhdn", w, xz, Bz)
+        h = h * torch.exp(tot[:, 0] * Af)[..., None, None] + states
+    y = torch.stack(ys, 1).reshape(b, s, nh, dh)
+    y = y + D.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype), h
+
+
+def ssd_decode_step(h, x, dt, A, B, C, D):
+    """One-token SSD update, the reference's ``ssd_decode_step``.
+    h:(b,nh,dh,N) x:(b,nh,dh) dt:(b,nh) B,C:(b,N).  Returns (y in x's
+    dtype, h_new f32)."""
+    hf, xf, dtf = h.float(), x.float(), dt.float()
+    decay = torch.exp(dtf * A.float()[None])
+    h_new = hf * decay[..., None, None] + (
+        dtf[..., None, None] * xf[..., None] * B.float()[:, None, None, :])
+    y = torch.einsum("bhdn,bn->bhd", h_new, C.float())
+    y = y + D.float()[None, :, None] * xf
+    return y.to(x.dtype), h_new

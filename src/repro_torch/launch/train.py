@@ -64,8 +64,14 @@ class StragglerWatchdog:
 
 
 def run(args) -> dict:
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if "mamba" in cfg.layer_kinds() and torch.device(args.device).type \
+            == "cuda":
+        raise NotImplementedError(
+            f"{cfg.name}: training on the card needs a gradient of the SSD "
+            "scan, which the reference's kernel lacks too (ssd_pallas is "
+            "forward-only); ROADMAP Queue 1 item 7")
+    dev = resolve_device(args.device)
     if args.reduced:
         cfg = dataclasses.replace(reduced(cfg), dtype="float32")
     shape = SHAPES[args.shape]

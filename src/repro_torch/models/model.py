@@ -1,32 +1,41 @@
 """Model assembly: embedding -> layer groups -> norm -> head.
 
-Port of the dense part of ``repro/models/model.py``: the full-sequence
-``forward`` and ``loss_fn`` (training) and ``decode_step`` (serving),
-with the parameter and decode-state layouts.  Parameters keep the JAX
-package's tree: ``embed.tok``, per-position ``groups`` whose leaves are
-stacked on a leading ``n_groups`` axis, and ``out_norm``; the decode
-state is a per-position list of ``{k, v}: (n_groups, B, S_max, Hkv, hd)``
-caches.  Only attention mixers with dense FFNs are ported (ROADMAP
-Queue 1 item 7 lists the other families).
+Port of ``repro/models/model.py``: the full-sequence ``forward`` and
+``loss_fn`` (training, prefill) and ``decode_step`` (serving), with the
+parameter and decode-state layouts.  A layer group follows
+``cfg.layer_kinds()`` x ``cfg.ffn_kinds()``: GQA attention or a Mamba-2
+mixer, with a dense, MoE or no FFN (Jamba: 7 Mamba + 1 attention layer a
+group, MoE every other layer).  Parameters keep the JAX package's tree:
+``embed.tok`` (and ``embed.head`` when untied), per-position ``groups``
+whose leaves are stacked on a leading ``n_groups`` axis, and
+``out_norm``.  The decode state is a per-position list of stacked
+``{k, v}: (n_groups, B, S_max, Hkv, hd)`` caches (attention) or
+``{conv: (n_groups, B, d_conv-1, d_in), h: (n_groups, B, nh, dh, N) f32}``
+states (Mamba).  MLA, xLSTM and the vision/audio frontends are not ported
+(ROADMAP Queue 1 item 7).
 
 The reference scans the layer groups under ``jax.checkpoint``; here the
 groups are a plain loop, each under ``torch.utils.checkpoint`` as
-``PerfConfig.remat`` says: ``none``, ``full`` (recompute the whole group
-in the backward) or ``dots`` (keep the outputs of the matrix products
-and recompute the rest, the counterpart of
-``dots_with_no_batch_dims_saveable``).
+``PerfConfig.remat`` says when a backward will run: ``none``, ``full``
+(recompute the whole group in the backward) or ``dots`` (keep the
+outputs of the matrix products and recompute the rest, the counterpart
+of ``dots_with_no_batch_dims_saveable``).
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.controller import resolve_device
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.attention import gqa_decode, gqa_forward
 from repro_torch.models.layers import (cross_entropy, embed_tokens, lm_head,
                                        mlp, rmsnorm, rope_table)
@@ -38,104 +47,166 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only; no decode step")
-    if set(cfg.layer_kinds()) != {"attn"} or cfg.mla is not None \
-            or set(cfg.ffn_kinds()) - {"dense"}:
+    if cfg.mla is not None or cfg.xlstm is not None \
+            or cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port decodes dense GQA models only (ROADMAP "
-            "Queue 1 item 7)")
+            f"{cfg.name}: MLA, xLSTM and the vision/audio frontends are not "
+            "ported (ROADMAP Queue 1 item 7)")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _group_shapes(cfg: ModelConfig) -> dict:
-    d, hd, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
-    return {
-        "ln1": {"scale": (d,)},
-        "mixer": {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
-                  "wv": (d, cfg.n_kv_heads * hd),
-                  "wo": (cfg.n_heads * hd, d)},
-        "ln2": {"scale": (d,)},
-        "ffn": {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)},
-    }
+class Leaf(NamedTuple):
+    """One parameter of the reference schema: its shape, its initializer
+    (normal: std 0.02; small: 0.002; zeros; ones) and whether it stays
+    f32 whatever the model dtype."""
+    shape: tuple
+    init: str = "normal"
+    f32: bool = False
 
 
-# initializer scales of the reference schema: normal 0.02, "small" leaves
-# (the output projections) 0.002, norm scales ones
-_SMALL = {"wo", "w_down"}
+def _mixer_leaves(cfg: ModelConfig, kind: str) -> dict:
+    d = cfg.d_model
+    if kind == "attn":
+        hd = cfg.head_dim_
+        return {"wq": Leaf((d, cfg.n_heads * hd)),
+                "wk": Leaf((d, cfg.n_kv_heads * hd)),
+                "wv": Leaf((d, cfg.n_kv_heads * hd)),
+                "wo": Leaf((cfg.n_heads * hd, d), "small")}
+    s, d_in, nh, _ = ssm.dims(cfg)
+    return {"in_proj": Leaf((d, 2 * d_in)),
+            "conv_w": Leaf((d_in, s.d_conv)),
+            "conv_b": Leaf((d_in,), "zeros"),
+            "x_to_dt": Leaf((d_in, nh)),
+            "dt_bias": Leaf((nh,), "zeros"),
+            "x_to_bc": Leaf((d_in, 2 * s.d_state)),
+            "a_log": Leaf((nh,), "zeros", f32=True),    # A = -exp(a_log)
+            "d_skip": Leaf((nh,), "ones", f32=True),
+            "norm": Leaf((d_in,), "ones"),
+            "out_proj": Leaf((d_in, d), "small")}
+
+
+def _ffn_leaves(cfg: ModelConfig, kind: str) -> dict:
+    d = cfg.d_model
+    if kind == "dense":
+        return {"w_gate": Leaf((d, cfg.d_ff)), "w_up": Leaf((d, cfg.d_ff)),
+                "w_down": Leaf((cfg.d_ff, d), "small")}
+    m = cfg.moe
+    E, f = m.n_experts, m.d_ff_expert
+    out = {"router": Leaf((d, E), f32=True),
+           "wg": Leaf((E, d, f)), "wu": Leaf((E, d, f)),
+           "wd": Leaf((E, f, d), "small")}
+    if m.n_shared:
+        fs = f * m.n_shared
+        out["shared"] = {"wg": Leaf((d, fs)), "wu": Leaf((d, fs)),
+                         "wd": Leaf((fs, d), "small")}
+    return out
+
+
+def param_leaves(cfg: ModelConfig) -> dict:
+    """The reference's parameter schema as a tree of ``Leaf``s, group
+    leaves stacked on a leading ``n_groups`` axis."""
+    _check_ported(cfg)
+    d, n = cfg.d_model, cfg.n_groups
+
+    def stacked(tree):
+        return tree_map(lambda l: l._replace(shape=(n,) + l.shape), tree,
+                        is_leaf=lambda x: isinstance(x, Leaf))
+
+    groups = []
+    for kind, ffn in zip(cfg.layer_kinds(), cfg.ffn_kinds()):
+        ent = {"ln1": {"scale": Leaf((d,), "ones")},
+               "mixer": _mixer_leaves(cfg, kind)}
+        if ffn != "none":
+            ent["ln2"] = {"scale": Leaf((d,), "ones")}
+            ent["ffn"] = _ffn_leaves(cfg, ffn)
+        groups.append(stacked(ent))
+    embed = {"tok": Leaf((cfg.padded_vocab, d))}
+    if not cfg.tie_embeddings:
+        embed["head"] = Leaf((d, cfg.padded_vocab))
+    return {"embed": embed, "groups": groups,
+            "out_norm": {"scale": Leaf((d,), "ones")}}
+
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, Leaf)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda", dtype=None) -> dict:
     """Random parameters in the reference layout, drawn from ``generator``
     on ``device`` (the card unless the caller asks for the CPU; the
-    generator must live there too).  The draws differ from the JAX
-    package's: carry its weights over with ``params_from_jax`` where
-    values must agree."""
-    _check_ported(cfg)
+    generator must live there too).  The f32 leaves of the schema
+    (``a_log``, ``d_skip``, the MoE router) stay f32.  The draws differ
+    from the JAX package's: carry its weights over with
+    ``params_from_jax`` where values must agree."""
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
-    n = cfg.n_groups
 
-    def normal(shape, scale):
-        out = torch.empty(shape, dtype=dtype, device=device)
-        for i in range(shape[0]):       # one f32 draw per layer at a time
-            out[i] = (torch.randn(shape[1:], generator=generator,
-                                  device=device) * scale).to(dtype)
+    def make(leaf: Leaf):
+        dt = torch.float32 if leaf.f32 else dtype
+        if leaf.init in ("zeros", "ones"):
+            fill = torch.zeros if leaf.init == "zeros" else torch.ones
+            return fill(leaf.shape, dtype=dt, device=device)
+        scale = 0.002 if leaf.init == "small" else 0.02
+        out = torch.empty(leaf.shape, dtype=dt, device=device)
+        for i in range(leaf.shape[0]):  # one f32 draw per row at a time
+            out[i] = (torch.randn(leaf.shape[1:], generator=generator,
+                                  device=device) * scale).to(dt)
         return out
 
-    groups = []
-    for _ in cfg.layer_kinds():
-        g = {}
-        for mod, leaves in _group_shapes(cfg).items():
-            g[mod] = {}
-            for name, shape in leaves.items():
-                if name == "scale":
-                    g[mod][name] = torch.ones((n,) + shape, dtype=dtype,
-                                              device=device)
-                else:
-                    g[mod][name] = normal(
-                        (n,) + shape, 0.002 if name in _SMALL else 0.02)
-        groups.append(g)
-    tok = normal((cfg.padded_vocab, cfg.d_model), 0.02)
-    embed = {"tok": tok}
-    if not cfg.tie_embeddings:
-        embed["head"] = normal((cfg.d_model, cfg.padded_vocab), 0.02)
-    return {"embed": embed, "groups": groups,
-            "out_norm": {"scale": torch.ones(cfg.d_model, dtype=dtype,
-                                             device=device)}}
+    leaves = param_leaves(cfg)
+    # the groups are drawn before the embedding, the order of earlier
+    # versions, so a seed keeps giving the same dense weights
+    groups = tree_map(make, leaves["groups"], is_leaf=_is_leaf)
+    return {"embed": tree_map(make, leaves["embed"], is_leaf=_is_leaf),
+            "groups": groups,
+            "out_norm": tree_map(make, leaves["out_norm"], is_leaf=_is_leaf)}
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> dict:
     """The JAX package's parameter tree (as numpy arrays) as the port's
-    parameters on ``device``: the same tree, each leaf a tensor in the
-    model dtype."""
-    _check_ported(cfg)
+    parameters on ``device``: the same tree, in the same order, each leaf
+    a tensor in the model dtype, or in f32 where the schema keeps it
+    f32."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg)
 
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [conv(v) for v in node]
+    def conv(node, leaf: Leaf):
+        if tuple(node.shape) != leaf.shape:
+            raise ValueError(f"leaf of shape {tuple(node.shape)}, the "
+                             f"schema has {leaf.shape}")
         host = torch.from_numpy(np.array(node, dtype=np.float32))
-        return host.to(device=device, dtype=dtype)
-    return conv(np_tree)
+        return host.to(device=device,
+                       dtype=torch.float32 if leaf.f32 else dtype)
+    return tree_map(conv, np_tree, param_leaves(cfg))
 
 
 def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cuda",
                  dtype=None) -> list:
-    """Zeroed per-position ``{k, v}`` caches, stacked over groups, on
-    ``device``."""
+    """Zeroed per-position decode states, stacked over groups, on
+    ``device``: ``{k, v}`` caches for attention, ``{conv, h}`` (h f32)
+    for Mamba."""
     _check_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
-    shape = (cfg.n_groups, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in cfg.layer_kinds()]
+    n = cfg.n_groups
+    out = []
+    for kind in cfg.layer_kinds():
+        if kind == "attn":
+            shape = (n, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
+            out.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                        "v": torch.zeros(shape, dtype=dtype, device=device)})
+        else:
+            s, d_in, nh, dh = ssm.dims(cfg)
+            out.append({
+                "conv": torch.zeros(n, batch, s.d_conv - 1, d_in,
+                                    dtype=dtype, device=device),
+                "h": torch.zeros(n, batch, nh, dh, s.d_state,
+                                 dtype=torch.float32, device=device)})
+    return out
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -143,23 +214,43 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
-def decode_step(cfg: ModelConfig, params, state, tokens, lengths):
+def _apply_ffn(cfg, ffn_kind, p, x, perf):
+    """x plus the layer's FFN, and its MoE aux loss (None without MoE)."""
+    if ffn_kind == "none":
+        return x, None
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if ffn_kind == "dense":
+        return x + mlp(p["ffn"], h), None
+    y, aux = moe_mod.moe_forward(cfg, p["ffn"], h, perf=perf)
+    return x + y, aux
+
+
+def decode_step(cfg: ModelConfig, params, state, tokens, lengths, *,
+                perf: PerfConfig = DEFAULT_PERF):
     """One decode step.
 
     tokens: (B,) int current input token per slot.
     lengths: (B,) int32 tokens already in cache (this token's position).
     Returns (logits (B, V) f32, state).  The state is updated in place:
-    each layer's cache gains row ``lengths[b]`` for every slot ``b``.
+    each attention layer's cache gains row ``lengths[b]`` for every slot
+    ``b``, and each Mamba layer's ``{conv, h}`` takes its new value.
     """
     _check_ported(cfg)
     x = embed_tokens(cfg, params["embed"], tokens)[:, None]
+    kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
     for layer in range(cfg.n_groups):
         for pos, gp in enumerate(params["groups"]):
             p = _layer(gp, layer)
-            cache = {"k": state[pos]["k"][layer], "v": state[pos]["v"][layer]}
+            st = {k: t[layer] for k, t in state[pos].items()}
             hn = rmsnorm(p["ln1"], x, cfg.norm_eps)
-            x = x + gqa_decode(cfg, p["mixer"], hn, cache, lengths)
-            x = x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+            if kinds[pos] == "attn":
+                y = gqa_decode(cfg, p["mixer"], hn, st, lengths)
+            else:
+                y, new = ssm.mamba_decode(cfg, p["mixer"], hn, st)
+                for k, t in new.items():
+                    st[k].copy_(t)
+            x = x + y
+            x, _ = _apply_ffn(cfg, ffns[pos], p, x, perf)
     x = rmsnorm(params["out_norm"], x, cfg.norm_eps)
     return lm_head(cfg, params["embed"], x)[:, 0], state
 
@@ -204,7 +295,8 @@ def _unstack(tree, n: int) -> list:
 
 def forward(cfg: ModelConfig, params, batch, *,
             perf: PerfConfig = DEFAULT_PERF, causal=None):
-    """Full-sequence forward -> (logits (B,S,V) f32, aux loss scalar)."""
+    """Full-sequence forward -> (logits (B,S,V) f32, aux loss scalar f32,
+    the MoE load-balance losses summed over layers)."""
     _check_ported(cfg)
     causal = (not cfg.encoder_only) if causal is None else causal
     x = embed_tokens(cfg, params["embed"], batch["tokens"])
@@ -212,20 +304,35 @@ def forward(cfg: ModelConfig, params, batch, *,
     cos, sin = (rope_table(S, cfg.head_dim_, cfg.rope_theta, device=x.device)
                 if cfg.rope_theta else (None, None))
     per_pos = [_unstack(gp, cfg.n_groups) for gp in params["groups"]]
+    kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
 
     def group_body(h, *group):
-        for p in group:
+        aux = None                       # the group's MoE aux losses
+        for kind, ffn, p in zip(kinds, ffns, group):
             hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
-            h = h + gqa_forward(cfg, p["mixer"], hn, cos, sin, causal=causal)
-            h = h + mlp(p["ffn"], rmsnorm(p["ln2"], h, cfg.norm_eps))
-        return h
+            if kind == "attn":
+                h = h + gqa_forward(cfg, p["mixer"], hn, cos, sin,
+                                    causal=causal)
+            else:
+                h = h + ssm.mamba_forward(cfg, p["mixer"], hn, perf=perf)
+            h, a = _apply_ffn(cfg, ffn, p, h, perf)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return h, aux
 
-    body = _remat(group_body, perf.remat)
+    # remat only matters where a backward will run (not under
+    # torch.no_grad or inference_mode, as in a prefill)
+    body = (_remat(group_body, perf.remat) if torch.is_grad_enabled()
+            else group_body)
+    auxs = []
     for i in range(cfg.n_groups):
-        x = body(x, *(pos[i] for pos in per_pos))
+        x, aux = body(x, *(pos[i] for pos in per_pos))
+        if aux is not None:
+            auxs.append(aux)
     x = rmsnorm(params["out_norm"], x, cfg.norm_eps)
     logits = lm_head(cfg, params["embed"], x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, (torch.stack(auxs).sum() if auxs else torch.zeros(
+        (), dtype=torch.float32, device=x.device))
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *,

@@ -32,11 +32,24 @@ class PageAccountant:
         return 1 if length % self.page_tokens == 0 else 0
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """The engine serves attention-only models.  Its gated merge saves and
+    restores the one cache row a step writes (``lengths[b]``), while a
+    Mamba layer overwrites its whole ``{conv, h}`` state every step, and
+    freeze/thaw and ``free_slot`` would have to carry those states too."""
+    if set(cfg.layer_kinds()) != {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: the engine serves attention-only models; Mamba "
+            "states in the gated merge, freeze/thaw and free_slot are not "
+            "ported yet (ROADMAP Queue 1 item 7)")
+
+
 class SlotCaches:
     """Dense per-slot decode state with host offload."""
 
     def __init__(self, cfg: ModelConfig, max_slots: int, s_max: int,
                  device="cpu"):
+        check_servable(cfg)
         self.cfg = cfg
         self.max_slots = max_slots
         self.s_max = s_max

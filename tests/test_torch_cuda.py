@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, over every head width and query-group size the decode and flash
-kernels take and every stock enforcement program.  Marked ``cuda``: without a
+kernels take, the paged decode's page sizes and unequal k/v widths, the
+SSD scan's chunk, state and head widths, and every stock enforcement
+program.  Marked ``cuda``: without a
 card these tests skip.  On the card (no JAX there, so skip the JAX
 conftest):
 
@@ -16,6 +18,7 @@ from repro_torch.core import sched as S
 from repro_torch.kernels import decode_attention as A
 from repro_torch.kernels import enforcement as K
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import ref as R
 
 pytestmark = pytest.mark.cuda
@@ -187,3 +190,86 @@ def test_flash_refuses_what_it_cannot_take(dev):
     q = torch.zeros(1, 16, 4, 64, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         FA.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,hkv,dk,dv,page,npp", [
+    (2, 8, 4, 64, 64, 16, 8), (2, 8, 4, 64, 64, 32, 4),
+    (8, 24, 8, 128, 128, 16, 128), (3, 6, 2, 32, 32, 16, 5),
+    (2, 8, 1, 128, 64, 32, 6), (4, 16, 2, 64, 128, 16, 40),
+])
+def test_paged_decode_kernel(dev, B, H, hkv, dk, dv, page, npp, dtype):
+    """A permuted pool, -1 past each length (never read), one empty slot
+    and one full slot."""
+    g = torch.Generator(device=dev).manual_seed(B * 100 + npp + dv)
+    n_pages = B * npp + 3
+    q = torch.randn(B, H, dk, generator=g, device=dev).to(dtype)
+    kp = torch.randn(n_pages, page, hkv, dk, generator=g,
+                     device=dev).to(dtype)
+    vp = torch.randn(n_pages, page, hkv, dv, generator=g,
+                     device=dev).to(dtype)
+    lengths = torch.randint(1, npp * page + 1, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    lengths[0], lengths[-1] = 0, npp * page
+    table = torch.randperm(n_pages, generator=g, device=dev)[:B * npp]
+    table = table.reshape(B, npp).to(torch.int32)
+    first = torch.arange(npp, device=dev)[None] * page
+    table = torch.where(first < lengths[:, None], table,
+                        torch.full_like(table, -1))
+    before = A.paged_decode_attention.launches
+    got = A.paged_decode_attention(q, kp, vp, table, lengths)
+    assert A.paged_decode_attention.launches == before + 1
+    want = A.paged_decode_attention_plain(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert not got[0].float().any()
+
+
+SSD_SHAPES = [  # b, s, nh, dh, N, chunk
+    (1, 128, 2, 32, 16, 32), (2, 64, 4, 16, 8, 64), (1, 96, 1, 64, 4, 32),
+    (1, 512, 2, 64, 16, 256), (2, 256, 3, 80, 16, 128),
+    (1, 1024, 8, 1024, 16, 256), (1, 96, 2, 200, 12, 96),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,dh,N,chunk", SSD_SHAPES)
+def test_ssd_kernel(dev, b, s, nh, dh, N, chunk, dtype):
+    """y within 5e-4 (1 + |b|) in f32, and in bf16 within 2e-2 (rms(b) +
+    |b|) and 1e-2 norm-relative; the f32 h_final within 5e-4 (1 + |b|);
+    B and C strided views of one projection."""
+    g = torch.Generator(device=dev).manual_seed(s + dh + N)
+    x = torch.randn(b, s, nh, dh, generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, nh, generator=g,
+                                                  device=dev))
+    A_ = -torch.exp(torch.randn(nh, generator=g, device=dev) * 0.5)
+    bc = torch.randn(b, s, 2 * N, generator=g, device=dev).to(dtype)
+    D = torch.randn(nh, generator=g, device=dev)
+    before = MS.ssd_scan.launches
+    y, h = MS.ssd_scan(x, dt, A_, bc[..., :N], bc[..., N:], D, chunk=chunk)
+    assert MS.ssd_scan.launches == before + 1
+    wy, wh = MS.ssd_plain(x, dt, A_, bc[..., :N], bc[..., N:], D,
+                          chunk=chunk)
+    torch.cuda.synchronize()
+    for a, w, dt_ in ((y, wy, dtype), (h, wh, torch.float32)):
+        a, w = a.double(), w.double()
+        diff = (a - w).abs()
+        if dt_ == torch.float32:
+            assert (diff <= 5e-4 * (1 + w.abs())).all()
+        else:
+            rms = w.square().mean().sqrt()
+            assert (diff <= 2e-2 * (rms + w.abs())).all()
+            assert diff.norm() <= 1e-2 * w.norm()
+
+
+def test_ssd_refuses_what_it_cannot_take(dev):
+    x = torch.zeros(1, 64, 1, 16, device=dev)
+    dt = torch.zeros(1, 64, 1, device=dev)
+    one = torch.ones(1, device=dev)
+    with pytest.raises(ValueError, match="states up to N=16"):
+        MS.ssd_scan(x, dt, one, torch.zeros(1, 64, 32, device=dev),
+                    torch.zeros(1, 64, 32, device=dev), one, chunk=64)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        MS.ssd_scan(x.requires_grad_(), dt, one,
+                    torch.zeros(1, 64, 8, device=dev),
+                    torch.zeros(1, 64, 8, device=dev), one, chunk=64)

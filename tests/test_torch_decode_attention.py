@@ -3,15 +3,19 @@ the plain torch version (what the wrapper runs on CPU tensors) and the
 port's flash-decoding oracle against ``decode_attention_pallas`` in
 interpret mode and ``ref.decode_attention_ref``, over the sweep of
 ``tests/test_kernels.py`` plus ragged ``S_max`` the Pallas kernel's
-block assertion refuses.  Tolerances as ``tests/test_kernels.py``: 2e-5
-in f32, 2e-2 in bf16."""
+block assertion refuses; and the paged form against
+``paged_decode_attention_pallas`` and ``ref.paged_decode_attention_ref``
+at the parameters of ``tests/test_kernels.py``, with -1 table entries
+past each length.  Tolerances as ``tests/test_kernels.py``: 2e-5 in f32,
+2e-2 in bf16."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ref as JR
-from repro.kernels.decode_attention import decode_attention_pallas
+from repro.kernels.decode_attention import (decode_attention_pallas,
+                                            paged_decode_attention_pallas)
 from repro_torch.kernels import decode_attention as TD
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
@@ -99,3 +103,48 @@ def test_cpu_route_counts_no_launch():
                         torch.from_numpy(vc),
                         torch.tensor([5], dtype=torch.int32))
     assert TD.decode_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("page,npp,dv", [(16, 8, 64), (32, 4, 64),
+                                         (16, 8, 32)])
+def test_paged_plain_matches_pallas_and_ref(page, npp, dv, dtype):
+    """``tests/test_kernels.py``'s pools (B=2, H=8, Hkv=4, dk=64, 64
+    pages, a permutation as the table) in both dtypes, and v narrower
+    than k.  The Pallas kernel loads a page for every table entry, so it
+    gets the whole permutation; the port gets -1 past each length and
+    must never read those entries."""
+    tol = DTYPES[dtype][2]
+    B, H, hkv, dk, n_pages = 2, 8, 4, 64, 64
+    rng = np.random.default_rng(page + dv)
+    q = rng.standard_normal((B, H, dk), np.float32)
+    kp = rng.standard_normal((n_pages, page, hkv, dk), np.float32)
+    vp = rng.standard_normal((n_pages, page, hkv, dv), np.float32)
+    table = rng.permutation(n_pages)[:B * npp].reshape(B, npp).astype(
+        np.int32)
+    lengths = np.array([page * npp // 2 + 3, page * npp], np.int32)
+    live = np.arange(npp)[None] * page < lengths[:, None]
+    holey = np.where(live, table, -1).astype(np.int32)
+    (jq, jk, jv), (tq, tk, tv) = both((q, kp, vp), dtype)
+    pallas = paged_decode_attention_pallas(
+        jq, jk, jv, jnp.asarray(table), jnp.asarray(lengths), interpret=True)
+    oracle = JR.paged_decode_attention_ref(jq, jk, jv, jnp.asarray(table),
+                                           jnp.asarray(lengths))
+    tl, tt = torch.from_numpy(lengths), torch.from_numpy(holey)
+    plain = TD.paged_decode_attention_plain(tq, tk, tv, tt, tl)
+    close(plain, pallas, tol)
+    close(plain, oracle, tol)
+    assert torch.equal(TO.paged_decode_attention(tq, tk, tv, tt, tl), plain)
+    close(TR.paged_decode_attention_ref(tq, tk, tv, tt, tl), oracle, tol)
+
+
+def test_paged_empty_slot_is_zero():
+    """A slot of length 0 reads no page at all (its whole row is -1) and
+    gives zeros, as the dense kernel does."""
+    q, kp, vp = inputs(2, 4, 2, 32, 16, 3)
+    table = torch.tensor([[-1, -1], [0, 1]], dtype=torch.int32)
+    got = TD.paged_decode_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(kp[:, :8]),
+        torch.from_numpy(vp[:, :8]), table,
+        torch.tensor([0, 12], dtype=torch.int32))
+    assert not got[0].any() and got[1].abs().sum() > 0
