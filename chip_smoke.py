@@ -8,6 +8,10 @@ Phases, one JSON line each on standard output:
   env            torch/CUDA versions, the card, the kernel build (every
                  ``src/repro_torch/csrc/*.cu`` built by ``nvcc`` into
                  ``build/kernels``, one compiler per source, in parallel).
+  flash_sass     (with kernels) the HGMMA and UTMALDG (TMA) instructions of
+                 each bf16 flash forward and the HMMA and LDGSTS (cp.async)
+                 of each bf16 backward kernel, from ``cuobjdump -sass``;
+                 fails where one is missing.
   kernels        each CUDA kernel against its plain PyTorch version on the
                  card, at the shapes its path gives it: the fused charge
                  and gate bit-exact over randomized tables and every stock
@@ -15,11 +19,14 @@ Phases, one JSON line each on standard output:
                  (bf16) at B=8, H=24, Hkv=8, d=128, S_max=2048 with ragged
                  lengths, plus a ragged S_max; the flash forward and
                  backward at the training shape (B=1, S=4096, H=24, Hkv=8,
-                 d=128, bf16, causal) and at a ragged S=1000, non-causal and
-                 causal, f32 and bf16: every element of out, lse, dq, dk
-                 and dv within 2e-5 (1 + |b|) in f32 and 2e-2 (rms(b) +
-                 |b|) in bf16, and in bf16 within 1e-2 norm-relative, b
-                 being the plain version's value; the paged decode at the
+                 d=128, bf16, causal), at a ragged S=1000, non-causal and
+                 causal, f32 and bf16, at S=333 against Sk=1000 (f32 full,
+                 bf16 causal) and in bf16 at d 32, 64 and 80: every element
+                 of out, lse, dq, dk and dv within 2e-5 (1 + |b|) in f32
+                 and 2e-2 (rms(b) + |b|) in bf16, and in bf16 within 1e-2
+                 norm-relative, b being the plain version's value; the
+                 library's forward, backward alone and both timed beside
+                 them; the paged decode at the
                  same serving shape over a permuted pool of 16-token pages
                  (-1 table entries past each length), f32 and bf16, and
                  with 32-token pages and v narrower than k; the SSD scan at
@@ -60,7 +67,10 @@ Phases, one JSON line each on standard output:
                  prefill_32k's sequence of 32768, batch 1: one untimed and
                  3 timed prefills, each through 7 SSD and 1 flash-forward
                  launches; finite logits and the next-token cross-entropy
-                 where random weights put it.
+                 where random weights put it; then the flash forward alone
+                 at that shape (H=32, Hkv=8, d=128, bf16, causal) against
+                 its plain version under the bf16 bar of the kernels phase,
+                 and timed beside the library call.
   profile        (only with ``--phases profile``) ``torch.profiler`` over
                  30 full-width engine steps: device busy and idle time, and
                  the kernels that take it.
@@ -395,10 +405,40 @@ def _flash_errs(FA, R, q, k, v, do, causal) -> dict:
     return {name: flash_close(a, b, q.dtype) for name, a, b in pairs}
 
 
+FLASH_SASS = {"fwd_wgmma_kernel": ("HGMMA", "UTMALDG"),
+              "dq_mma_kernel": ("HMMA", "LDGSTS"),
+              "dkdv_mma_kernel": ("HMMA", "LDGSTS")}
+
+
+def flash_sass(lib: Path) -> dict:
+    """How many tensor-core and async-copy instructions each bf16 flash
+    kernel's SASS holds, from ``cuobjdump -sass`` on the built library:
+    the forward must hold HGMMA (wgmma) and UTMALDG (TMA loads), the dq
+    and dk/dv kernels HMMA (mma.sync) and LDGSTS (cp.async)."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0]
+        for kernel, ops in FLASH_SASS.items():
+            if kernel in name:
+                dim = name.split(kernel, 1)[1].split("ILi", 1)[1].split("E")[0]
+                counts[f"{kernel}<{dim}>"] = {op: block.count(op)
+                                              for op in ops}
+    missing = [k for k, c in counts.items() if not all(c.values())]
+    if len(counts) != 4 * len(FLASH_SASS) or missing:
+        raise AssertionError(f"flash SASS: {counts}")
+    return counts
+
+
 def check_flash(dev, seed: int) -> dict:
     """The flash forward and backward against their plain versions: at
     the training shape (bf16, causal) with times, bounds and the library
-    yardstick, and at a ragged S in f32 and bf16, causal and not."""
+    yardstick (forward, backward alone, both), at a ragged S in f32 and
+    bf16, causal and not, at Sq != Sk, and at every other head dim."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
@@ -414,6 +454,11 @@ def check_flash(dev, seed: int) -> dict:
                           dict(B=2, S=1000, H=24, hkv=8, d=128)))
     cases.append(("cross_f32_full", torch.float32, False,
                   dict(B=1, S=333, H=6, hkv=2, d=80, Sk=1000)))
+    cases.append(("cross_bf16_causal", torch.bfloat16, True,
+                  dict(B=1, S=333, H=6, hkv=2, d=80, Sk=1000)))
+    for d in (32, 64, 80):
+        cases.append((f"head{d}_bf16_causal", torch.bfloat16, True,
+                      dict(B=1, S=1000, H=8, hkv=2, d=d)))
     for name, dtype, causal, shape in cases:
         q, k, v, do = _flash_inputs(g, dev, dtype, **shape)
         errs = _flash_errs(FA, R, q, k, v, do, causal)
@@ -448,6 +493,11 @@ def check_flash(dev, seed: int) -> dict:
     lib_err = (lib_fwd().transpose(1, 2).float() - o.float()).abs().max()
     lib_f = cuda_ms(lib_fwd, 10, 2)
     lib_fb = cuda_ms(lib_fwd_bwd, 5, 1)
+    # the library's backward alone, over one retained forward
+    y = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                       enable_gqa=True)
+    lib_b = cuda_ms(lambda: torch.autograd.grad(y, (lq, lk, lv), dos,
+                                                retain_graph=True), 5, 1)
     # causal work: half of the S x S scores; forward 2 products, the
     # backward's necessary 5 (s, dp, dq, dk, dv) = 2.5x the forward
     fwd_ops = 4 * B * H * S * S * d / 2
@@ -460,7 +510,8 @@ def check_flash(dev, seed: int) -> dict:
                       bound_ms(fwd_bytes, fwd_ops, torch.bfloat16), lib_f),
         "flash_bwd": (bwd_ms, bwd_plain,
                       bound_ms(bwd_bytes, 2.5 * fwd_ops, torch.bfloat16),
-                      lib_fb)}
+                      lib_b)}
+    out["library_fwd_bwd_ms"] = lib_fb
     out["fwd_tflops"] = fwd_ops / fwd_ms / 1e9
     out["bwd_tflops"] = 2.5 * fwd_ops / bwd_ms / 1e9
     out["library_max_abs_err"] = lib_err.item()
@@ -980,12 +1031,15 @@ def prefill_full(dev, seed: int) -> dict:
     generator on the card) at prefill_32k's sequence of 32768, batch 1:
     one untimed prefill, then ``PREFILL_TIMED`` timed ones, each through
     7 SSD launches and 1 flash-forward launch; finite logits; the mean
-    next-token cross-entropy where random weights put it."""
+    next-token cross-entropy where random weights put it; the flash
+    forward alone at the prefill shape, out and lse against the plain
+    version (``flash_close``), and its time beside the library call's."""
     import torch.nn.functional as F
 
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import ref as R
     from repro_torch.models import model as M
     from repro_torch.models import moe as MoE
     from repro_torch.models.layers import cross_entropy
@@ -1055,17 +1109,26 @@ def prefill_full(dev, seed: int) -> dict:
     if not abs(ce - ce_expect) <= 0.5:
         raise AssertionError(f"prefill cross-entropy {ce}, expected "
                              f"{ce_expect}")
-    # the flash forward alone at the prefill shape, and the library call
+    # the flash forward alone at the prefill shape: held against its
+    # plain version element by element, then timed beside the library call
     hd = cfg.head_dim_
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     q = torch.randn(1, seq, cfg.n_heads, hd, generator=g,
                     device=dev).to(torch.bfloat16)
     k, v = (torch.randn(1, seq, cfg.n_kv_heads, hd, generator=g,
                         device=dev).to(torch.bfloat16) for _ in range(2))
-    fwd_ms = cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=True), 2, 1)
+    out, lse = FA.flash_fwd(q, k, v, causal=True)
+    want_out, want_lse = R.flash_fwd(q, k, v, causal=True)
+    fwd_errs = {"out": flash_close(out, want_out, torch.bfloat16),
+                "lse": flash_close(lse, want_lse, torch.bfloat16)}
+    del out, lse, want_out, want_lse
+    if not all(e["ok"] for e in fwd_errs.values()):
+        raise AssertionError(f"flash forward at the prefill shape: "
+                             f"{fwd_errs} over {ATTN_TOL[torch.bfloat16]}")
+    fwd_ms = cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=True), 5, 2)
     qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True), 3, 1)
+        qs, ks, vs, is_causal=True, enable_gqa=True), 5, 2)
     fwd_ops = 4 * seq * seq * cfg.n_heads * hd / 2
     p50 = statistics.median(prefill_s)
     return {"config": cfg.name, "layers": cfg.n_layers, "seq": seq,
@@ -1084,6 +1147,7 @@ def prefill_full(dev, seed: int) -> dict:
                                          DEFAULT_PERF.capacity_factor),
             "aux": float(aux), "cross_entropy": ce,
             "cross_entropy_expected": ce_expect,
+            "flash_fwd_prefill_errs": fwd_errs,
             "flash_fwd_prefill_ms": fwd_ms,
             "flash_fwd_prefill_tflops": fwd_ops / fwd_ms / 1e9,
             "flash_fwd_prefill_library_ms": lib_ms}
@@ -1257,6 +1321,8 @@ def main() -> None:
 
     rows = None
     if "kernels" in phases:
+        emit({"phase": "flash_sass",
+              **flash_sass(libs["flash_attention"])})
         enf = check_enforcement(dev, args.seed)
         tim = time_enforcement(dev, args.seed)
         dec = check_decode(dev, args.seed)
@@ -1290,7 +1356,8 @@ def main() -> None:
         for name, parts in (("flash_fwd", ("out", "lse")),
                             ("flash_bwd", ("dq", "dk", "dv"))):
             errs = [e[k] for case, e in fla.items()
-                    if case.startswith(("train", "ragged", "cross"))
+                    if case.startswith(("train", "ragged", "cross",
+                                        "head"))
                     for k in parts]
             rows[name] = dict(
                 source="src/repro_torch/csrc/flash_attention.cu",
@@ -1340,6 +1407,11 @@ def main() -> None:
         return
     launches = dict(full["launches"], **train["launches"],
                     ssd_scan=prefill["launches_per_prefill"]["ssd_scan"])
+    # the forward's errors include those at the prefill shape
+    fwd = rows["flash_fwd"]
+    for e in prefill["flash_fwd_prefill_errs"].values():
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], e["max_abs"])
+        fwd["norm_rel_err"] = max(fwd["norm_rel_err"], e["norm_rel"])
     table = []
     for name, r in rows.items():
         ms, plain, (bnd, by), lib = r["timing"]

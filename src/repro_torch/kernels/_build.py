@@ -3,15 +3,17 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library
 with a plain C interface and loaded with ``ctypes`` — no PyTorch headers,
 so a build takes seconds.  Libraries go to ``build/kernels/`` at the root
-of the checkout, named by a hash of the source and the flags, so a stale
-library is never loaded.  Nothing here runs at import time: a kernel
-module asks for its library inside the function that launches it.
+of the checkout, named by a hash of the source, the ``csrc/`` headers it
+includes and the flags, so a stale library is never loaded.  Nothing here
+runs at import time: a kernel module asks for its library inside the
+function that launches it.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -28,6 +30,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # multiply-adds behind the decision code's back (see the source note)
 EXTRA_FLAGS = {"enforcement": ["--fmad=false"], "decode_attention": [],
                "flash_attention": [], "mamba_scan": []}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: dict = {}
 
@@ -45,10 +48,24 @@ def nvcc() -> str:
     return found
 
 
+def _sources(path: Path, seen: dict) -> dict:
+    """``path`` and every ``csrc/`` header it includes, transitively, as
+    {path: bytes}."""
+    text = path.read_bytes()
+    seen[path] = text
+    for name in _INCLUDE.findall(text):
+        dep = (path.parent / name.decode()).resolve()
+        if dep.is_file() and dep not in seen:
+            _sources(dep, seen)
+    return seen
+
+
 def _command(name: str) -> tuple[list, Path]:
     src = CSRC / f"{name}.cu"
     flags = BASE_FLAGS + ARCH + EXTRA_FLAGS[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path, text in sorted(_sources(src.resolve(), {}).items()):
+        digest.update(path.name.encode() + b"\0" + text)
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     return [nvcc(), *flags, "-o", str(out), str(src)], out
 

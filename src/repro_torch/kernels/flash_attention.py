@@ -6,8 +6,10 @@ it (``repro/kernels/ref.py::_flash_bwd``), as CUDA C++ in
 ``csrc/flash_attention.cu``: the forward streams K/V tiles under an f32
 online softmax and saves the log-sum-exp; the backward recomputes p from
 it, with a pass for dq and a pass for dk/dv that sums the query heads of
-each kv head inside one CTA.  The source note there says what bounds the
-kernels and what the design does about it.
+each kv head inside one CTA.  bf16 runs on the tensor cores (the forward
+on wgmma fed by TMA, the backward on mma.sync fed by cp.async); f32 runs
+on scalar kernels that hold 2e-5.  The source note there says what
+bounds the kernels and what the design does about it.
 
 ``flash_fwd`` and ``flash_bwd`` launch the kernels on CUDA tensors (or
 raise) and run the plain versions of ``kernels/ref.py`` on CPU tensors.

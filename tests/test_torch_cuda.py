@@ -128,7 +128,29 @@ FLASH_SHAPES = [  # B, S, Sk, H, Hkv, d, causal
     (1, 128, 128, 6, 2, 80, False), (2, 192, 192, 4, 1, 64, True),
     (1, 1000, 1000, 8, 2, 128, True), (2, 77, 131, 4, 2, 128, False),
     (1, 131, 77, 4, 4, 64, True), (1, 64, 64, 24, 8, 128, True),
+    # sequences shorter than one 128-row box, MHA and MQA, causal with
+    # S != Sk both ways, and every head dim in the causal cross case
+    (2, 50, 50, 4, 2, 128, True), (1, 33, 200, 8, 8, 64, False),
+    (1, 300, 500, 6, 2, 80, True), (1, 500, 300, 4, 1, 32, True),
+    (2, 200, 333, 6, 3, 128, True), (1, 260, 140, 3, 3, 64, True),
 ]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_one_tile(dev, causal):
+    """The bf16 forward on one 128 x 128 tile (S 128, one head): the
+    wgmma descriptors, the TMA swizzle and the fragment order, before any
+    loop over key tiles."""
+    g = torch.Generator(device=dev).manual_seed(128)
+    q, k, v = (torch.randn(1, 128, 1, 128, generator=g, device=dev
+                           ).to(torch.bfloat16) for _ in range(3))
+    out, lse = FA.flash_fwd(q, k, v, causal=causal)
+    want_out, want_lse = R.flash_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (lse - want_lse).abs().max().item() <= 2e-2
+    diff = (out.double() - want_out.double()).abs()
+    rms = want_out.double().square().mean().sqrt()
+    assert (diff <= 2e-2 * (rms + want_out.double().abs())).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

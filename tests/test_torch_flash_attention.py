@@ -8,7 +8,11 @@ held against on the card) against the JAX package on the CPU.
   reference's ``flash_attention_blockwise`` (custom VJP), causal and
   not, atol 1e-4 / rtol 1e-3 as in ``test_kernels.py``;
 * the ``FlashAttention`` autograd Function under ``gradcheck`` in f64,
-  and recomputed correctly under both remat policies.
+  and recomputed correctly under both remat policies;
+* the bf16 kernels' arithmetic, emulated here on the CPU (bf16 q/k/v, the
+  scale on f32 scores, P and dS split into bf16 hi + lo for the products
+  that read them), against the plain versions under the card's bf16 bar:
+  every element within 2e-2 (rms(b) + |b|), 1e-2 norm-relative.
 """
 import jax
 import jax.numpy as jnp
@@ -148,3 +152,85 @@ def test_function_recomputed_under_checkpoint(remat):
     assert runs == {"none": 1, remat: 2}
     for a, b in zip(grads["none"], grads[remat]):
         assert torch.equal(a, b)
+
+
+def _bf16_split(x):
+    """x as the kernels feed it to a bf16 product: hi = bf16(x) plus the
+    bf16 rest lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def _emulate_bf16_kernels(q, k, v, do, causal):
+    """(out, lse, dq, dk, dv) as the bf16 tensor-core kernels compute
+    them: products of bf16 operands added in f32, the scale applied to the
+    f32 scores, an f32 softmax whose sum l is taken before rounding, P and
+    dS rounded (``_bf16_split``) for P V, dS K, P^T dO and dS^T q, outputs
+    rounded to bf16.  Delta reads the rounded out, as on the card."""
+    B, S, H, d = q.shape
+    G = H // k.shape[2]
+    scale = d ** -0.5
+    qf, dof = q.float(), do.float()
+    kx, vx = (t.float().repeat_interleave(G, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kx) * scale
+    if causal:
+        live = torch.ones(S, k.shape[1], dtype=torch.bool).tril()
+        s = s.masked_fill(~live, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    out = (torch.einsum("bhqk,bkhd->bhqd", _bf16_split(p), vx) / l
+           ).transpose(1, 2).to(torch.bfloat16)
+    lse = (m + torch.log(l)).squeeze(-1)
+    P = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vx)
+    delta = (dof * out.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = _bf16_split(P * (dp - delta) * scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kx)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16_split(P), dof)
+    dk, dv = (t.reshape(B, -1, H // G, G, d).sum(3) for t in (dk, dv))
+    return (out, lse) + tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def _bar_ratio(a, b):
+    """Largest |a - b| / (2e-2 (rms(b) + |b|)) and the norm-relative error:
+    the card's bf16 bar holds where the first is <= 1, the second <= 1e-2."""
+    a, b = a.double(), b.double()
+    diff = (a - b).abs()
+    rms = b.square().mean().sqrt()
+    return ((diff / (TOL["bfloat16"] * (rms + b.abs()))).max().item(),
+            (diff.norm() / b.norm()).item())
+
+
+def _emulated_vs_plain(S, H, hkv, d, causal, seed):
+    q, k, v, do = (as_torch(x, "bfloat16") for x in draws(
+        seed, (1, S, H, d), (1, S, hkv, d), (1, S, hkv, d), (1, S, H, d)))
+    got = _emulate_bf16_kernels(q, k, v, do, causal)
+    out, lse = TR.flash_fwd(q, k, v, causal=causal)
+    want = (out, lse) + TR.flash_bwd(q, k, v, got[0], got[1], do,
+                                     causal=causal)
+    return got, want
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_kernel_rounding_within_bar(causal, G, d):
+    """The bf16 kernels' roundings (hi + lo split of P and dS) against the
+    plain versions, at S 273 (a ragged tail past 256): within the bar
+    that ``chip_smoke.py`` and ``test_torch_cuda.py`` hold the card to;
+    the forward also against the JAX package's naive oracle."""
+    S, hkv = 273, 2
+    got, want = _emulated_vs_plain(S, G * hkv, hkv, d, causal,
+                                   seed=G * 10 + d)
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        ratio, rel = _bar_ratio(a, b)
+        assert ratio <= 1.0 and rel <= 1e-2, (name, ratio, rel)
+    q, k, v = (as_jax(x, "bfloat16") for x in draws(
+        G * 10 + d, (1, S, G * hkv, d), (1, S, hkv, d), (1, S, hkv, d)))
+    naive = torch.from_numpy(np.asarray(
+        JR.attention_naive(q, k, v, causal=causal), np.float32))
+    ratio, rel = _bar_ratio(got[0], naive)
+    assert ratio <= 1.0 and rel <= 1e-2, ("out vs JAX", ratio, rel)
+
