@@ -8,9 +8,10 @@ Phases, one JSON line each on standard output:
   env            torch/CUDA versions, the card, the kernel build (every
                  ``src/repro_torch/csrc/*.cu`` built by ``nvcc`` into
                  ``build/kernels``, one compiler per source, in parallel).
-  flash_sass     (with kernels) the HGMMA and UTMALDG (TMA) instructions of
-                 each bf16 flash forward and the HMMA and LDGSTS (cp.async)
-                 of each bf16 backward kernel, from ``cuobjdump -sass``;
+  sass           (with kernels) the HGMMA and UTMALDG (TMA) instructions of
+                 each bf16 flash forward, and the HMMA and LDGSTS (cp.async)
+                 of each bf16 flash backward kernel and of the bf16 SSD
+                 state and chunk-scan kernels, from ``cuobjdump -sass``;
                  fails where one is missing.
   kernels        each CUDA kernel against its plain PyTorch version on the
                  card, at the shapes its path gives it: the fused charge
@@ -32,9 +33,12 @@ Phases, one JSON line each on standard output:
                  with 32-token pages and v narrower than k; the SSD scan at
                  the Jamba prefill's shape (b=1, s=32768, nh=8, dh=1024,
                  N=16, chunk 256, bf16, B and C strided), in f32 at s=4096,
-                 one chunk, a ragged dh and a steep decay: y within 5e-4
-                 (1 + |b|) in f32 and as the flash checks in bf16, h_final
-                 within 5e-4 (1 + |b|).  Times from CUDA events.
+                 one chunk, a ragged dh and a steep decay, in bf16 a ragged
+                 dh, a steep decay, a ragged chunk (s=100), batch 2, N=4
+                 and dh=36: y within 5e-4 (1 + |b|) in f32 and as the flash
+                 checks in bf16, h_final within 5e-4 (1 + |b|).  Times from
+                 CUDA events; the bf16 SSD call's three kernels each from
+                 ``torch.profiler``.
   engine_parity  the reduced f32 llama3.2-3b on the CPU and on the card:
                  decode logits within 1e-4, and the engine's ``report()``
                  identical in inkernel and userspace modes and under the
@@ -405,33 +409,46 @@ def _flash_errs(FA, R, q, k, v, do, causal) -> dict:
     return {name: flash_close(a, b, q.dtype) for name, a, b in pairs}
 
 
-FLASH_SASS = {"fwd_wgmma_kernel": ("HGMMA", "UTMALDG"),
-              "dq_mma_kernel": ("HMMA", "LDGSTS"),
-              "dkdv_mma_kernel": ("HMMA", "LDGSTS")}
+# library -> (instantiations of each kernel: the flash kernels' four head
+# dims; kernel -> the SASS instructions it must hold)
+KERNEL_SASS = {
+    "flash_attention": (4, {"fwd_wgmma_kernel": ("HGMMA", "UTMALDG"),
+                            "dq_mma_kernel": ("HMMA", "LDGSTS"),
+                            "dkdv_mma_kernel": ("HMMA", "LDGSTS")}),
+    "mamba_scan": (1, {"ssd_state_kernel": ("HMMA", "LDGSTS"),
+                       "ssd_chunk_scan_kernel": ("HMMA", "LDGSTS")}),
+}
 
 
-def flash_sass(lib: Path) -> dict:
-    """How many tensor-core and async-copy instructions each bf16 flash
-    kernel's SASS holds, from ``cuobjdump -sass`` on the built library:
-    the forward must hold HGMMA (wgmma) and UTMALDG (TMA loads), the dq
-    and dk/dv kernels HMMA (mma.sync) and LDGSTS (cp.async)."""
+def kernel_sass(libs: dict) -> dict:
+    """How many tensor-core and async-copy instructions each bf16 kernel
+    of ``KERNEL_SASS`` holds, from ``cuobjdump -sass`` on the built
+    library: the flash forward HGMMA (wgmma) and UTMALDG (TMA loads); the
+    flash dq and dk/dv kernels and the SSD state and chunk-scan kernels
+    HMMA (mma.sync) and LDGSTS (cp.async)."""
     from repro_torch.kernels import _build
 
     tool = Path(_build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    counts = {}
-    for block in sass.split("Function : ")[1:]:
-        name = block.split("\n", 1)[0]
-        for kernel, ops in FLASH_SASS.items():
-            if kernel in name:
-                dim = name.split(kernel, 1)[1].split("ILi", 1)[1].split("E")[0]
-                counts[f"{kernel}<{dim}>"] = {op: block.count(op)
-                                              for op in ops}
-    missing = [k for k, c in counts.items() if not all(c.values())]
-    if len(counts) != 4 * len(FLASH_SASS) or missing:
-        raise AssertionError(f"flash SASS: {counts}")
-    return counts
+    out = {}
+    for lib, (copies, kernels) in KERNEL_SASS.items():
+        sass = subprocess.run([str(tool), "-sass", str(libs[lib])],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts = {}
+        for block in sass.split("Function : ")[1:]:
+            name = block.split("\n", 1)[0]
+            for kernel, ops in kernels.items():
+                if kernel in name:
+                    rest = name.split(kernel, 1)[1]
+                    dim = rest.split("ILi", 1)[1].split("E")[0] \
+                        if "ILi" in rest else ""
+                    counts[f"{kernel}<{dim}>" if dim else kernel] = {
+                        op: block.count(op) for op in ops}
+        missing = [k for k, c in counts.items() if not all(c.values())]
+        if len(counts) != copies * len(kernels) or missing:
+            raise AssertionError(f"{lib} SASS: {counts}")
+        out[lib] = counts
+    return out
 
 
 def check_flash(dev, seed: int) -> dict:
@@ -550,14 +567,20 @@ def ssd_close(a, b, dtype) -> dict:
 
 
 def check_ssd(dev, seed: int) -> dict:
-    """The SSD scan kernel against its plain version: the prefill path's
-    shape in bf16 (with times and the bound), the same in f32 at s=4096,
-    one chunk, a ragged dh, and a decay steep enough that exp overflows
-    above the diagonal of a chunk.  y as ``ssd_close`` says, the f32
-    h_final within 5e-4 (1 + |b|) in every case."""
+    """The SSD scan kernels against their plain version: the prefill
+    path's shape in bf16 (with times and the bound), the same in f32 at
+    s=4096, one chunk, a ragged dh in f32 and bf16, and in bf16 a decay
+    steep enough that exp overflows above the diagonal of a chunk, a
+    ragged chunk (s=100 with chunk 256), batch 2, N=4 at chunk 256 and a
+    dh of 36 (no 16-byte copies).
+    Every case hands over B and C as strided halves of one projection.
+    y as ``ssd_close`` says, the f32 h_final within 5e-4 (1 + |b|) in
+    every case."""
     from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.kernels.ssd_ablation import kernel_ms
 
     g = torch.Generator(device=dev).manual_seed(seed)
+    steep = dict(b=1, s=512, nh=4, dh=128, N=16, chunk=256)
     cases = [("path_bf16", torch.bfloat16, SSD_PATH, {}),
              ("path_f32_s4096", torch.float32, dict(SSD_PATH, s=4096), {}),
              ("one_chunk_f32", torch.float32,
@@ -569,9 +592,17 @@ def check_ssd(dev, seed: int) -> dict:
              # |dt A| ~ 3 a step: seg spans ~800 over a chunk, so exp of
              # the upper triangle would overflow many times over, while seg
              # keeps ~1e-4 of absolute precision
-             ("steep_decay_f32", torch.float32,
-              dict(b=1, s=512, nh=4, dh=128, N=16, chunk=256),
-              dict(dt_scale=4.0))]
+             ("steep_decay_f32", torch.float32, steep, dict(dt_scale=4.0)),
+             ("steep_decay_bf16", torch.bfloat16, steep, dict(dt_scale=4.0)),
+             ("ragged_chunk_bf16", torch.bfloat16,
+              dict(b=1, s=100, nh=2, dh=64, N=16, chunk=256), {}),
+             ("batch2_bf16", torch.bfloat16,
+              dict(b=2, s=1024, nh=4, dh=256, N=16, chunk=256), {}),
+             ("state4_bf16", torch.bfloat16,
+              dict(b=1, s=1024, nh=2, dh=128, N=4, chunk=256), {}),
+             # dh not a multiple of 8: x through plain loads, not cp.async
+             ("dh36_bf16", torch.bfloat16,
+              dict(b=1, s=64, nh=2, dh=36, N=8, chunk=32), {})]
     out = {}
     for name, dtype, shape, kw in cases:
         x, dt, A, B, C, D = _ssd_inputs(g, dev, dtype, **shape, **kw)
@@ -587,7 +618,11 @@ def check_ssd(dev, seed: int) -> dict:
     x, dt, A, B, C, D = _ssd_inputs(g, dev, torch.bfloat16, **SSD_PATH)
     b, s, nh, dh, N, c = (SSD_PATH[k] for k in
                           ("b", "s", "nh", "dh", "N", "chunk"))
-    ms = cuda_ms(lambda: MS.ssd_scan(x, dt, A, B, C, D, chunk=c), 10, 2)
+
+    def call():
+        return MS.ssd_scan(x, dt, A, B, C, D, chunk=c)
+
+    ms = cuda_ms(call, 10, 2)
     plain = cuda_ms(lambda: MS.ssd_plain(x, dt, A, B, C, D, chunk=c), 3, 1)
     # bytes: x and y in bf16, dt and dt*A in f32, B and C in bf16, D, the
     # f32 h_final; operations: the products the Pallas kernel does per
@@ -598,6 +633,8 @@ def check_ssd(dev, seed: int) -> dict:
                                  + 2 * 2 * c * N * dh)
     out["timing"] = (ms, plain, bound_ms(n_bytes, n_ops, torch.bfloat16),
                      None)
+    # the bf16 call's three kernels, device time a call (profiler)
+    out["kernel_ms"] = kernel_ms(call)
     return out
 
 
@@ -1212,9 +1249,10 @@ def train_profile(dev, seed: int, warm: int = 1, steps: int = 2) -> dict:
 
 def prefill_profile(dev, seed: int) -> dict:
     """Where the prefill_full configuration's time goes:
-    ``torch.profiler`` over 2 prefills after one.  Not part of the
-    default run."""
+    ``torch.profiler`` over 2 prefills after one, with the SSD scan's
+    kernels named whatever their rank.  Not part of the default run."""
     from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.ssd_ablation import KERNELS
     from repro_torch.models import model as M
 
     cfg = dataclasses.replace(get_config(JAMBA), n_layers=PREFILL_LAYERS)
@@ -1229,12 +1267,13 @@ def prefill_profile(dev, seed: int) -> dict:
             M.forward(cfg, params, {"tokens": tokens})
 
     prefill()
-    return _profile(prefill, 2)
+    return _profile(prefill, 2, named=KERNELS)
 
 
-def _profile(step, steps: int) -> dict:
+def _profile(step, steps: int, named=()) -> dict:
     """``torch.profiler`` over ``steps`` calls of ``step``: wall time,
-    device busy time and idle share, and the kernels that take it."""
+    device busy time and idle share, the kernels that take most of it and
+    each kernel whose name holds one of ``named``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1249,14 +1288,18 @@ def _profile(step, steps: int) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+
+    def row(e):
+        return {"name": e.key[:90], "calls_per_step": e.count / steps,
+                "ms_per_step": e.self_device_time_total / 1e3 / steps}
+
     return {"steps": steps, "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "cuda_launches_per_step": sum(e.count for e in kernels) / steps,
-            "top_kernels": [{"name": e.key[:90], "calls_per_step":
-                             e.count / steps, "ms_per_step":
-                             e.self_device_time_total / 1e3 / steps}
-                            for e in top]}
+            "top_kernels": [row(e) for e in top],
+            "named_kernels": [row(e) for e in kernels
+                              if any(f"::{n}(" in e.key for n in named)]}
 
 
 def _host_gate(snap: dict, dom: list, step: int) -> list:
@@ -1321,8 +1364,7 @@ def main() -> None:
 
     rows = None
     if "kernels" in phases:
-        emit({"phase": "flash_sass",
-              **flash_sass(libs["flash_attention"])})
+        emit({"phase": "sass", **kernel_sass(libs)})
         enf = check_enforcement(dev, args.seed)
         tim = time_enforcement(dev, args.seed)
         dec = check_decode(dev, args.seed)
@@ -1365,14 +1407,15 @@ def main() -> None:
                 max_abs_err=max(e["max_abs"] for e in errs),
                 norm_rel_err=max(e["norm_rel"] for e in errs),
                 timing=fla["timing"][name])
-        ssd_errs = [e[k] for case, e in ssd.items() if case != "timing"
+        ssd_errs = [e[k] for case, e in ssd.items()
+                    if case not in ("timing", "kernel_ms")
                     for k in ("y", "h")]
         rows["ssd_scan"] = dict(
             source="src/repro_torch/csrc/mamba_scan.cu",
             replaces="src/repro/kernels/mamba_scan.py:88",
             max_abs_err=max(e["max_abs"] for e in ssd_errs),
             norm_rel_err=max(e["norm_rel"] for e in ssd_errs),
-            timing=ssd["timing"])
+            timing=ssd["timing"], kernel_ms=ssd["kernel_ms"])
     if "engine_parity" in phases:
         emit({"phase": "engine_parity", "card": card,
               **engine_parity(dev, args.seed)})
@@ -1422,7 +1465,9 @@ def main() -> None:
                       "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
                       "library_ms": lib,
                       **({"max_norm_rel_err": r["norm_rel_err"]}
-                         if "norm_rel_err" in r else {})})
+                         if "norm_rel_err" in r else {}),
+                      **({"kernel_ms": r["kernel_ms"]}
+                         if "kernel_ms" in r else {})})
     emit({"kernels": table})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

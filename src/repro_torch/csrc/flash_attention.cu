@@ -782,27 +782,9 @@ __device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src, int r0,
   }
 }
 
-// A fragment (16 rows x 16 of k) of a warp from a row-major [rows][D + 8]
-// tile; B fragments of two n8 tiles (k16 deep) from a [n][D + 8] tile
-// (``ldsm_b``: n-major, k contiguous) or from a [k][D + 8] tile
-// (``ldsm_bt``: k-major, n contiguous, read transposed).
-template <int LD>
-__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const bf16* tile,
-                                       int row, int k, int lane) {
-  hopper::ldsm_x4(a, tile + (row + lane % 16) * LD + k + 8 * (lane / 16));
-}
-template <int LD>
-__device__ __forceinline__ void ldsm_b(uint32_t (&b)[4], const bf16* tile,
-                                       int n, int k, int lane) {
-  hopper::ldsm_x4(b, tile + (n + lane % 8 + 8 * (lane / 16)) * LD + k +
-                         8 * ((lane / 8) % 2));
-}
-template <int LD>
-__device__ __forceinline__ void ldsm_bt(uint32_t (&b)[4], const bf16* tile,
-                                        int k, int n, int lane) {
-  hopper::ldsm_x4_t(b, tile + (k + lane % 8 + 8 * ((lane / 8) % 2)) * LD + n +
-                           8 * (lane / 16));
-}
+using hopper::ldsm_a;
+using hopper::ldsm_b;
+using hopper::ldsm_bt;
 
 // c[8][4] (16 rows x 64) = A (16 rows of ``at``) * B^T (64 rows of ``bt``)
 // over the D columns of both.

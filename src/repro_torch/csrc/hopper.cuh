@@ -253,6 +253,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// Arrive once on ``bar`` when every cp.async this thread issued before it
+// has landed; ``noinc``: the barrier's count must include this arrival.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
 // Four 8x8 bf16 matrices from shared memory; lane i gives the address of
 // row i % 8 of matrix i / 8.  ``_t`` delivers each matrix transposed.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -266,6 +273,32 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
                "{%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// mma.sync fragments from bf16 tiles in shared memory with LD elements a
+// row.  ``ldsm_a``: the A fragment (16 rows x 16 of k) of a warp from a
+// row-major [rows][LD] tile; ``ldsm_b``: the B fragments of two n8 tiles
+// (k16 deep) from a [n][LD] tile (n-major, k contiguous); ``ldsm_bt``: the
+// same from a [k][LD] tile (k-major, n contiguous, read transposed).
+template <int LD>
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4],
+                                       const __nv_bfloat16* tile, int row,
+                                       int k, int lane) {
+  ldsm_x4(a, tile + (row + lane % 16) * LD + k + 8 * (lane / 16));
+}
+template <int LD>
+__device__ __forceinline__ void ldsm_b(uint32_t (&b)[4],
+                                       const __nv_bfloat16* tile, int n,
+                                       int k, int lane) {
+  ldsm_x4(b, tile + (n + lane % 8 + 8 * (lane / 16)) * LD + k +
+                 8 * ((lane / 8) % 2));
+}
+template <int LD>
+__device__ __forceinline__ void ldsm_bt(uint32_t (&b)[4],
+                                        const __nv_bfloat16* tile, int k,
+                                        int n, int lane) {
+  ldsm_x4_t(b, tile + (k + lane % 8 + 8 * ((lane / 8) % 2)) * LD + n +
+                   8 * (lane / 16));
 }
 
 // c (16 x 8, f32) += a (16 x 16, row) * b (16 x 8, col), bf16 operands.

@@ -8,6 +8,8 @@
                       an autograd Function (csrc/flash_attention.cu)
   mamba_scan        — the chunked SSD (Mamba-2) scan forward
                       (csrc/mamba_scan.cu)
+  ssd_ablation      — where the bf16 SSD scan's time goes: its kernels
+                      timed on the card with one part of the work cut
   ref               — plain torch oracles
   ops               — the per-op entry points the models call
 

@@ -1,9 +1,12 @@
 """Chunked SSD (Mamba-2) scan forward on Hopper.
 
 Port of ``repro/kernels/mamba_scan.py::ssd_pallas`` as CUDA C++ in
-``csrc/mamba_scan.cu``.  For each chunk of ``c = min(chunk, s)`` steps,
-with ``seg`` the inclusive cumsum of ``ldec = dt * A`` (formed in f32
-before the cumsum, as the Pallas kernel does):
+``csrc/mamba_scan.cu``: in bf16 three kernel launches a call (chunk
+states, the pass of the state between chunks, the chunk outputs), the
+chunk products on the tensor cores; in f32 one scalar kernel.  For each
+chunk of ``c = min(chunk, s)`` steps, with ``seg`` the inclusive cumsum
+of ``ldec = dt * A`` (formed in f32 before the cumsum, as the Pallas
+kernel does):
 
     y_cross = exp(seg) * (C h_prev^T)
     y_intra = ((C B^T) o causal exp(seg_i - seg_j) o dt_j) x
@@ -129,11 +132,16 @@ def _launch(x, dt, A, B, C, D, chunk):
     Df = D.float().contiguous()
     y = torch.empty_like(x)
     h = torch.empty(b, nh, dh, N, dtype=torch.float32, device=dev)
+    # bf16 scratch: each chunk's state, then (in place) the state entering
+    # it, and each chunk's decay exp(tot)
+    nc = s // c if x.dtype == torch.bfloat16 else 0
+    states = torch.empty(b, nc, nh, dh, N, dtype=torch.float32, device=dev)
+    decay = torch.empty(b, nc, nh, dtype=torch.float32, device=dev)
     err = _lib().ssd_scan(
         x.data_ptr(), dtf.data_ptr(), ldec.data_ptr(), B.data_ptr(),
         C.data_ptr(), Df.data_ptr(), y.data_ptr(), h.data_ptr(),
-        b, s, nh, dh, N, c, B.stride(0), B.stride(1), C.stride(0),
-        C.stride(1), _DTYPES[x.dtype],
+        states.data_ptr(), decay.data_ptr(), b, s, nh, dh, N, c,
+        B.stride(0), B.stride(1), C.stride(0), C.stride(1), _DTYPES[x.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ssd_scan")
     ssd_scan.launches += 1
@@ -145,6 +153,6 @@ def _lib():
     fn = lib.ssd_scan
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 8 + [I] * 6 + [L] * 4 + [I, P]
+        fn.argtypes = [P] * 10 + [I] * 6 + [L] * 4 + [I, P]
         fn.restype = I
     return lib

@@ -251,19 +251,18 @@ SSD_SHAPES = [  # b, s, nh, dh, N, chunk
     (1, 128, 2, 32, 16, 32), (2, 64, 4, 16, 8, 64), (1, 96, 1, 64, 4, 32),
     (1, 512, 2, 64, 16, 256), (2, 256, 3, 80, 16, 128),
     (1, 1024, 8, 1024, 16, 256), (1, 96, 2, 200, 12, 96),
+    (1, 100, 2, 64, 16, 100), (1, 64, 2, 36, 8, 32),
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,nh,dh,N,chunk", SSD_SHAPES)
-def test_ssd_kernel(dev, b, s, nh, dh, N, chunk, dtype):
+def _ssd_check(dev, b, s, nh, dh, N, chunk, dtype, dt_scale=1.0):
     """y within 5e-4 (1 + |b|) in f32, and in bf16 within 2e-2 (rms(b) +
     |b|) and 1e-2 norm-relative; the f32 h_final within 5e-4 (1 + |b|);
     B and C strided views of one projection."""
     g = torch.Generator(device=dev).manual_seed(s + dh + N)
     x = torch.randn(b, s, nh, dh, generator=g, device=dev).to(dtype)
     dt = torch.nn.functional.softplus(torch.randn(b, s, nh, generator=g,
-                                                  device=dev))
+                                                  device=dev)) * dt_scale
     A_ = -torch.exp(torch.randn(nh, generator=g, device=dev) * 0.5)
     bc = torch.randn(b, s, 2 * N, generator=g, device=dev).to(dtype)
     D = torch.randn(nh, generator=g, device=dev)
@@ -273,6 +272,7 @@ def test_ssd_kernel(dev, b, s, nh, dh, N, chunk, dtype):
     wy, wh = MS.ssd_plain(x, dt, A_, bc[..., :N], bc[..., N:], D,
                           chunk=chunk)
     torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
     for a, w, dt_ in ((y, wy, dtype), (h, wh, torch.float32)):
         a, w = a.double(), w.double()
         diff = (a - w).abs()
@@ -282,6 +282,19 @@ def test_ssd_kernel(dev, b, s, nh, dh, N, chunk, dtype):
             rms = w.square().mean().sqrt()
             assert (diff <= 2e-2 * (rms + w.abs())).all()
             assert diff.norm() <= 1e-2 * w.norm()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,dh,N,chunk", SSD_SHAPES)
+def test_ssd_kernel(dev, b, s, nh, dh, N, chunk, dtype):
+    _ssd_check(dev, b, s, nh, dh, N, chunk, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_steep_decay(dev, dtype):
+    """dt x 4: seg spans hundreds over a chunk of 256, so exp above the
+    diagonal would overflow many times over."""
+    _ssd_check(dev, 1, 512, 4, 128, 16, 256, dtype, dt_scale=4.0)
 
 
 def test_ssd_refuses_what_it_cannot_take(dev):

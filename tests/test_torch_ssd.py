@@ -3,8 +3,10 @@ version (what the wrapper runs on CPU tensors) against ``ssd_pallas`` in
 interpret mode and ``ref.ssd_sequential``, at the shapes of
 ``tests/test_kernels.py`` plus one 256-step chunk, in f32 and bf16; the
 torch oracles against the JAX oracles; the one-token decode step; the
-refusals; and a decay steep enough that ``exp`` overflows above the
-diagonal of a chunk.
+refusals; a decay steep enough that ``exp`` overflows above the
+diagonal of a chunk; and the bf16 kernels' roundings, emulated here
+(``_emulate_bf16_kernels``), against the plain version and the Pallas
+kernel.
 
 Tolerances: y within 5e-4 (1 + |b|) in f32; in bf16 within
 2e-2 (rms(b) + |b|) elementwise and 1e-2 norm-relative; h_final within
@@ -164,3 +166,95 @@ def test_cpu_route_counts_no_launch():
     TM.ssd_scan(*(torch.from_numpy(a) for a in inputs(1, 32, 1, 8, 4, 2)),
                 chunk=32)
     assert TM.ssd_scan.launches == before
+
+
+def _bf16_split(t):
+    """t as the bf16 kernels feed it to a product: hi = bf16(t) plus the
+    bf16 rest lo = bf16(t - hi)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
+
+
+def _emulate_bf16_kernels(x, dt, A, B, C, D, chunk, split_wb=True):
+    """(y, h_final) as the three bf16 kernels compute them: products of
+    bf16 operands summed in f32; w o B (the state kernel) and M (the chunk
+    scan's decay-weighted C B^T, masked before the exp) split into bf16
+    hi + lo; the pass between chunks in f32; h_in rounded once to bf16 for
+    the cross-chunk term; y with the reference's rounding, bf16(bf16(y) +
+    bf16(D x)).  ``split_wb=False`` rounds w o B once instead."""
+    b, s, nh, dh = x.shape
+    N = B.shape[-1]
+    c = min(chunk, s)
+    nc = s // c
+    xf = x.float().reshape(b, nc, c, nh, dh)
+    dtf = dt.float().reshape(b, nc, c, nh)
+    Bf, Cf = (t.float().reshape(b, nc, c, N) for t in (B, C))
+    seg = torch.cumsum(dtf * A.float(), 2)                 # (b,z,c,nh)
+    tot = seg[:, :, -1]                                    # (b,z,nh)
+    w = dtf * torch.exp(tot[:, :, None] - seg)
+    wb = w[..., None] * Bf[:, :, :, None, :]               # (b,z,j,nh,N)
+    wb = _bf16_split(wb) if split_wb else wb.to(torch.bfloat16).float()
+    states = torch.einsum("bzjhp,bzjhn->bzhpn", xf, wb)
+    h = torch.zeros(b, nh, dh, N)
+    h_in = []
+    for z in range(nc):
+        h_in.append(h)
+        h = h * torch.exp(tot[:, z])[..., None, None] + states[:, z]
+    h_in = torch.stack(h_in, 1).to(torch.bfloat16).float()  # (b,z,nh,dh,N)
+    cb = torch.einsum("bzin,bzjn->bzij", Cf, Bf)
+    causal = torch.ones(c, c, dtype=torch.bool).tril()[None, None, :, :, None]
+    rel = seg[:, :, :, None] - seg[:, :, None]             # (b,z,i,j,nh)
+    decm = torch.exp(torch.where(causal, rel, torch.full_like(rel, -np.inf)))
+    m = _bf16_split(cb[..., None] * decm * dtf[:, :, None])
+    y = torch.einsum("bzijh,bzjhp->bzihp", m, xf) + torch.einsum(
+        "bzin,bzhpn->bzihp", Cf, h_in) * torch.exp(seg)[..., None]
+    y = y.reshape(b, s, nh, dh).to(torch.bfloat16)
+    skip = (D.float()[None, None, :, None] * x.float()).to(torch.bfloat16)
+    return y + skip, h
+
+
+def _bar_ratio(a, b):
+    """Largest |a - b| / (2e-2 (rms(b) + |b|)) and the norm-relative error:
+    the card's bf16 bar holds where the first is <= 1, the second <= 1e-2."""
+    a, b = a.double(), b.double()
+    diff = (a - b).abs()
+    rms = b.square().mean().sqrt()
+    return ((diff / (2e-2 * (rms + b.abs()))).max().item(),
+            (diff.norm() / b.norm()).item())
+
+
+@pytest.mark.parametrize("b,s,nh,dh,N,chunk,dt_scale", [
+    (1, 1024, 2, 128, 16, 256, 1.0),    # several chunks of the prefill's 256
+    (1, 100, 2, 80, 12, 256, 1.0),      # one ragged chunk, N and dh ragged
+    (1, 768, 2, 64, 16, 256, 4.0),      # steep decay: exp overflows above
+])                                      # the diagonal many times over
+def test_bf16_kernel_rounding_within_bar(b, s, nh, dh, N, chunk, dt_scale):
+    """The bf16 kernels' roundings (``_emulate_bf16_kernels``) against the
+    plain version and the JAX ``ssd_pallas`` (interpret), from the same
+    bf16 inputs: y within the card's bf16 bar (2e-2 (rms(b) + |b|), 1e-2
+    norm-relative), h_final within 5e-4 (1 + |b|)."""
+    x, dt, A, B, C, D = inputs(b, s, nh, dh, N, 17)
+    (jx, jdt, jA, jB, jC, jD), (tx, tdt, tA, tB, tC, tD) = both(
+        (x, dt * dt_scale, A, B, C, D), "bfloat16")
+    y, h = _emulate_bf16_kernels(tx, tdt, tA, tB, tC, tD, chunk)
+    py, ph = TM.ssd_plain(tx, tdt, tA, tB, tC, tD, chunk=chunk)
+    jy, jh = ssd_pallas(jx, jdt, jA, jB, jC, jD, chunk=chunk, interpret=True)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    for name, want in (("plain", py), ("pallas", torch.tensor(
+            np.asarray(jy.astype(jnp.float32))))):
+        ratio, rel = _bar_ratio(y, want)
+        assert ratio <= 1.0 and rel <= 1e-2, (name, ratio, rel)
+    close(h, ph, "float32")
+    close(h, jh, "float32")
+
+
+def test_state_weights_rounded_once_miss_the_bar():
+    """Why the state kernel splits w o B into bf16 hi + lo: rounded once,
+    h_final leaves its 5e-4 (1 + |b|) bar against the plain version."""
+    x, dt, A, B, C, D = inputs(1, 1024, 2, 128, 16, 17)
+    _, (tx, tdt, tA, tB, tC, tD) = both((x, dt, A, B, C, D), "bfloat16")
+    _, h = _emulate_bf16_kernels(tx, tdt, tA, tB, tC, tD, 256,
+                                 split_wb=False)
+    _, ph = TM.ssd_plain(tx, tdt, tA, tB, tC, tD, chunk=256)
+    diff = (h.double() - ph.double()).abs()
+    assert (diff > 5e-4 * (1 + ph.double().abs())).any()
