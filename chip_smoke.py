@@ -10,15 +10,20 @@ Phases, one JSON line each on standard output:
                  ``build/kernels``, one compiler per source, in parallel).
   sass           (with kernels) the HGMMA and UTMALDG (TMA) instructions of
                  each bf16 flash forward, and the HMMA and LDGSTS (cp.async)
-                 of each bf16 flash backward kernel and of the bf16 SSD
-                 state and chunk-scan kernels, from ``cuobjdump -sass``;
-                 fails where one is missing.
+                 of each bf16 flash backward kernel, of the bf16 SSD state
+                 and chunk-scan kernels and of the bf16 decode kernel, from
+                 ``cuobjdump -sass``; fails where one is missing.
   kernels        each CUDA kernel against its plain PyTorch version on the
                  card, at the shapes its path gives it: the fused charge
                  and gate bit-exact over randomized tables and every stock
                  program; decode attention within 2e-5 (f32) and 2e-2
-                 (bf16) at B=8, H=24, Hkv=8, d=128, S_max=2048 with ragged
-                 lengths, plus a ragged S_max; the flash forward and
+                 (bf16) and each slot within 1e-2 norm-relative, at B=8,
+                 H=24, Hkv=8, d=128, S_max=2048 with the short contexts
+                 the engine serves and with ragged lengths up to S_max, a
+                 ragged S_max, and in bf16 at S_max=32768 (123,787 live
+                 keys), each bf16 call one kernel, timed cold (every call
+                 on another cache set) by the profiler beside
+                 ``scaled_dot_product_attention``; the flash forward and
                  backward at the training shape (B=1, S=4096, H=24, Hkv=8,
                  d=128, bf16, causal), at a ragged S=1000, non-causal and
                  causal, f32 and bf16, at S=333 against Sk=1000 (f32 full,
@@ -28,9 +33,10 @@ Phases, one JSON line each on standard output:
                  norm-relative, b being the plain version's value; the
                  library's forward, backward alone and both timed beside
                  them; the paged decode at the
-                 same serving shape over a permuted pool of 16-token pages
-                 (-1 table entries past each length), f32 and bf16, and
-                 with 32-token pages and v narrower than k; the SSD scan at
+                 same shapes over a permuted pool of 16-token pages
+                 (-1 table entries past each length), f32 and bf16, with
+                 32-token pages and v narrower than k in both, timed as
+                 the dense one; the SSD scan at
                  the Jamba prefill's shape (b=1, s=32768, nh=8, dh=1024,
                  N=16, chunk 256, bf16, B and C strided), in f32 at s=4096,
                  one chunk, a ragged dh and a steep decay, in bf16 a ragged
@@ -106,10 +112,13 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))
+try:
+    from repro_torch.kernels.timing import bound_ms, card_line, cuda_ms
+except ModuleNotFoundError:
+    sys.exit("chip_smoke: the port's sources (src/repro_torch) are not "
+             "beside this script; run it from the root of a checkout")
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense bf16 and f32 peaks
-MEM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 INT32_MAX = 2**31 - 1
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 FLASH_BF16_NORM_REL = 1e-2
@@ -122,37 +131,6 @@ def fail(msg: str) -> None:
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
-    """Mean time of one ``fn()`` from CUDA events around ``iters`` calls
-    issued back to back, after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
-    t_bytes = n_bytes / MEM_BYTES_PER_S
-    t_ops = n_ops / PEAK_OPS_PER_S[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def to_device(tree, device):
@@ -312,56 +290,109 @@ def time_enforcement(dev, seed: int) -> dict:
     return {"charge": (ms, plain, c_bound), "gate": (gms, gplain, g_bound)}
 
 
-def check_decode(dev, seed: int) -> dict:
-    import torch.nn.functional as F
+def decode_close(got, want, lengths) -> dict:
+    """The decode kernel's ``got`` against the plain version's ``want``:
+    the largest absolute difference (the bar: ATTN_TOL of the dtype, for
+    every element), the norm-relative error ||got - want|| / ||want||,
+    its largest over the live slots (the bar: FLASH_BF16_NORM_REL for
+    each slot; a slot of n live keys has |out| near sqrt(e / n), ~0.01 at
+    32768 keys, so the absolute bar alone would pass a slot that lost a
+    CTA's share of its keys), and whether both bars hold and every slot
+    of length 0 is exactly 0."""
+    tol = ATTN_TOL[want.dtype]
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    live = lengths > 0
+    slot_rel = (diff.flatten(1).norm(dim=1)
+                / want.flatten(1).norm(dim=1).clamp(min=1e-30))[live]
+    slot_rel = slot_rel.max().item() if slot_rel.numel() else 0.0
+    ok = diff.max().item() <= tol and slot_rel <= FLASH_BF16_NORM_REL \
+        and not bool(got[~live].any())
+    return {"max_abs": diff.max().item(),
+            "norm_rel": (diff.norm() / want.norm().clamp(min=1e-30)).item(),
+            "slot_norm_rel": slot_rel, "bar": tol,
+            "slot_bar": FLASH_BF16_NORM_REL, "ok": ok}
 
-    from repro_torch.kernels import decode_attention as A
 
-    B, H, hkv, d, s_max = 8, 24, 8, 128, 2048
-    g = torch.Generator(device=dev).manual_seed(seed)
-    lengths = torch.tensor([1, s_max, 37, 256, 257, 1000, 1555, 2047],
-                           dtype=torch.int32, device=dev)
+def time_decode(fn, layout: str, dev, library=None) -> dict:
+    """A bf16 decode wrapper at each shape of ``kernels/decode_bench.py``
+    (short agent contexts, caches filled to S_max, long context), cold
+    (each call on another cache set): device time and kernels a call
+    from the profiler, the issue pace from CUDA events, the bound, and
+    the library call timed the same way.  Fails unless a call runs
+    exactly one kernel."""
+    from repro_torch.kernels import decode_bench as DB
+
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(B, H, d, generator=g, device=dev).to(dtype)
-        k = torch.randn(B, s_max, hkv, d, generator=g, device=dev).to(dtype)
-        v = torch.randn(B, s_max, hkv, d, generator=g, device=dev).to(dtype)
-        got = A.decode_attention(q, k, v, lengths)
-        want = A.decode_attention_plain(q, k, v, lengths)
-        err = (got.float() - want.float()).abs().max().item()
-        if not err <= ATTN_TOL[dtype]:
-            raise AssertionError(f"decode attention {dtype}: err {err}")
-        # a ragged S_max (no multiple of the 256-key split) and an empty row
-        rl = torch.tensor([0, 1, 700, 1001], dtype=torch.int32, device=dev)
-        rq, rk, rv = q[:4], k[:4, :1001].contiguous(), v[:4, :1001].contiguous()
-        r_err = (A.decode_attention(rq, rk, rv, rl).float()
-                 - A.decode_attention_plain(rq, rk, rv, rl).float()
-                 ).abs().max().item()
-        if not r_err <= ATTN_TOL[dtype]:
-            raise AssertionError(f"ragged decode attention {dtype}: {r_err}")
-        name = "f32" if dtype == torch.float32 else "bf16"
-        out[f"{name}_max_abs_err"] = err
-        out[f"{name}_ragged_max_abs_err"] = r_err
-        if dtype is not torch.bfloat16:
-            continue
-        # the main path's dtype: times, bound and the library yardstick
-        ms = cuda_ms(lambda: A.decode_attention(q, k, v, lengths), 200)
-        plain = cuda_ms(lambda: A.decode_attention_plain(q, k, v, lengths),
-                        20)
-        mask = (torch.arange(s_max, device=dev)[None]
-                < lengths[:, None])[:, None, None, :]
-        qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    for shape, spec in DB.SHAPES.items():
+        sets = DB.cache_sets(shape, layout, dev)
+        r = DB.measure(fn, sets, spec["calls"])
+        if r["kernels_per_call"] != 1:
+            raise AssertionError(f"a bf16 {layout} decode call ran "
+                                 f"{r['kernels']}, not one kernel")
+        r["bound"] = DB.bound(shape, layout == "paged")
+        if library is not None:
+            r["library_ms"] = DB.measure(library, sets,
+                                         spec["calls"])["device_ms"]
+        out[shape] = r
+        del sets
+        torch.cuda.empty_cache()
+    return out
 
-        def library():
-            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                                  enable_gqa=True)
-        lib_err = (library()[:, :, 0].float() - want.float()).abs().max()
-        lib_ms = cuda_ms(library, 50)
-        live = int(lengths.sum())
-        n_bytes = 2 * live * hkv * d * 2 + 2 * B * H * d * 2 + B * 4
-        n_ops = 4 * live * H * d
-        out["timing"] = (ms, plain, bound_ms(n_bytes, n_ops, dtype), lib_ms)
-        out["library_max_abs_err"] = lib_err.item()
+
+def check_decode(dev, seed: int) -> dict:
+    """The decode kernel against its plain version, each case as
+    ``decode_close`` says, at the heads of engine_full (B 8, H 24, Hkv 8,
+    d 128) and each shape of ``kernels/decode_bench.py`` in bf16: short
+    agent contexts as the engine serves (S_max 2048), caches filled to
+    ragged lengths up to S_max 2048, with f32 beside it, and S_max 32768;
+    and a ragged S_max of 1001 with an empty slot in both dtypes.  Then
+    the bf16 kernel's times (``time_decode``) beside
+    ``scaled_dot_product_attention``'s, and the plain version's at the
+    short shape."""
+    from repro_torch.kernels import decode_attention as A
+    from repro_torch.kernels import decode_bench as DB
+
+    B, H, hkv, d = (DB.HEADS[k] for k in ("B", "H", "hkv", "d"))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for shape, spec in DB.SHAPES.items():
+        s_max = spec["s_max"]
+        lengths = torch.tensor(spec["lengths"], dtype=torch.int32,
+                               device=dev)
+        dtypes = (torch.float32, torch.bfloat16) if shape == "filled" \
+            else (torch.bfloat16,)
+        for dtype in dtypes:
+            name = "f32" if dtype == torch.float32 else "bf16"
+            q = torch.randn(B, H, d, generator=g, device=dev).to(dtype)
+            k, v = (torch.randn(B, s_max, hkv, d, generator=g, device=dev)
+                    .to(dtype) for _ in range(2))
+            cases = {f"{name}_{shape}": (q, k, v, lengths)}
+            if shape == "filled":
+                # a ragged S_max (no multiple of 64) and an empty slot
+                cases[f"{name}_ragged"] = (
+                    q[:4], k[:4, :1001].contiguous(),
+                    v[:4, :1001].contiguous(),
+                    torch.tensor([0, 1, 700, 1001], dtype=torch.int32,
+                                 device=dev))
+            for case, args in cases.items():
+                want = A.decode_attention_plain(*args)
+                r = decode_close(A.decode_attention(*args), want, args[-1])
+                if not r["ok"]:
+                    raise AssertionError(f"decode attention {case}: {r}")
+                out[case] = r
+            if shape == "short":
+                out["library_max_abs_err"] = (
+                    DB.library(q, k, v, lengths).float()
+                    - A.decode_attention_plain(q, k, v, lengths).float()
+                ).abs().max().item()
+                plain = cuda_ms(
+                    lambda: A.decode_attention_plain(q, k, v, lengths), 20)
+            del q, k, v, cases
+    torch.cuda.empty_cache()
+    out["times"] = time_decode(A.decode_attention, "dense", dev, DB.library)
+    t = out["times"]["short"]
+    out["timing"] = (t["device_ms"], plain, t["bound"], t["library_ms"])
     return out
 
 
@@ -410,13 +441,15 @@ def _flash_errs(FA, R, q, k, v, do, causal) -> dict:
 
 
 # library -> (instantiations of each kernel: the flash kernels' four head
-# dims; kernel -> the SASS instructions it must hold)
+# dims, the decode kernel's nine (dk, dv) pairs; kernel -> the SASS
+# instructions it must hold)
 KERNEL_SASS = {
     "flash_attention": (4, {"fwd_wgmma_kernel": ("HGMMA", "UTMALDG"),
                             "dq_mma_kernel": ("HMMA", "LDGSTS"),
                             "dkdv_mma_kernel": ("HMMA", "LDGSTS")}),
     "mamba_scan": (1, {"ssd_state_kernel": ("HMMA", "LDGSTS"),
                        "ssd_chunk_scan_kernel": ("HMMA", "LDGSTS")}),
+    "decode_attention": (9, {"decode_mma_kernel": ("HMMA", "LDGSTS")}),
 }
 
 
@@ -424,8 +457,8 @@ def kernel_sass(libs: dict) -> dict:
     """How many tensor-core and async-copy instructions each bf16 kernel
     of ``KERNEL_SASS`` holds, from ``cuobjdump -sass`` on the built
     library: the flash forward HGMMA (wgmma) and UTMALDG (TMA loads); the
-    flash dq and dk/dv kernels and the SSD state and chunk-scan kernels
-    HMMA (mma.sync) and LDGSTS (cp.async)."""
+    flash dq and dk/dv kernels, the SSD state and chunk-scan kernels and
+    the decode kernel HMMA (mma.sync) and LDGSTS (cp.async)."""
     from repro_torch.kernels import _build
 
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -440,8 +473,8 @@ def kernel_sass(libs: dict) -> dict:
             for kernel, ops in kernels.items():
                 if kernel in name:
                     rest = name.split(kernel, 1)[1]
-                    dim = rest.split("ILi", 1)[1].split("E")[0] \
-                        if "ILi" in rest else ""
+                    dim = ",".join(rest.split("ILi", 1)[1].split("EE")[0]
+                                   .split("ELi")) if "ILi" in rest else ""
                     counts[f"{kernel}<{dim}>" if dim else kernel] = {
                         op: block.count(op) for op in ops}
         missing = [k for k, c in counts.items() if not all(c.values())]
@@ -638,67 +671,83 @@ def check_ssd(dev, seed: int) -> dict:
     return out
 
 
-PAGED = dict(B=8, H=24, hkv=8, d=128, page=16, s_max=2048)
-
-
 def check_paged(dev, seed: int) -> dict:
-    """The paged decode kernel against its plain version at the serving
-    shape of engine_full (B=8, H=24, Hkv=8, d=128, 16-token pages, the
-    ragged lengths of ``check_decode``), the table a seeded permutation
-    of the pool with -1 past each length, in f32 and bf16 (within 2e-5
-    and 2e-2); then 32-token pages with v narrower than k, and an empty
-    slot.  Times, bound and errors in bf16."""
+    """The paged decode kernel against its plain version over a permuted
+    pool with -1 table entries past each length, each case as
+    ``decode_close`` says: the shapes of ``check_decode`` in 16-token
+    pages (short and long in bf16, filled in f32 and bf16), and 32-token
+    pages with v narrower than k (d 64) and an empty slot in both
+    dtypes.  Then the bf16 kernel's times (``time_decode``) and the
+    plain version's at the short shape."""
     from repro_torch.kernels import decode_attention as A
+    from repro_torch.kernels import decode_bench as DB
 
-    B, H, hkv, d, page, s_max = (PAGED[k] for k in
-                                 ("B", "H", "hkv", "d", "page", "s_max"))
+    B, H, hkv, d = (DB.HEADS[k] for k in ("B", "H", "hkv", "d"))
     g = torch.Generator(device=dev).manual_seed(seed)
-    lengths = torch.tensor([1, s_max, 37, 256, 257, 1000, 1555, 2047],
-                           dtype=torch.int32, device=dev)
 
-    def table(npp, pg, lens):
-        n_pages = B * npp
-        perm = torch.randperm(n_pages, generator=g, device=dev)
-        tbl = perm.reshape(B, npp).to(torch.int32)
-        first = torch.arange(npp, device=dev)[None] * pg
-        return torch.where(first < lens[:, None], tbl,
-                           torch.full_like(tbl, -1)), n_pages
+    def lens_of(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
 
+    short, filled, long = (DB.SHAPES[k] for k in ("short", "filled", "long"))
+    edges = lens_of([0, 5, 64, 100, 31, 32, 33, 2048])
+    cases = [("bf16_short", torch.bfloat16, 16, d, 2048,
+              lens_of(short["lengths"])),
+             ("f32", torch.float32, 16, d, 2048, lens_of(filled["lengths"])),
+             ("bf16", torch.bfloat16, 16, d, 2048,
+              lens_of(filled["lengths"])),
+             ("f32_page32_dv64", torch.float32, 32, 64, 2048, edges),
+             ("bf16_page32_dv64", torch.bfloat16, 32, 64, 2048, edges),
+             ("bf16_long", torch.bfloat16, 16, d, long["s_max"],
+              lens_of(long["lengths"]))]
     out = {}
-    cases = [("f32", torch.float32, page, d, lengths),
-             ("bf16", torch.bfloat16, page, d, lengths),
-             ("f32_page32_dv64", torch.float32, 32, 64,
-              torch.tensor([0, 5, 64, 100, 31, 32, 33, 2048],
-                           dtype=torch.int32, device=dev))]
-    for name, dtype, pg, dv, lens in cases:
+    for name, dtype, pg, dv, s_max, lens in cases:
         npp = s_max // pg
-        tbl, n_pages = table(npp, pg, lens)
+        tbl = torch.randperm(B * npp, generator=g, device=dev).reshape(
+            B, npp).to(torch.int32)
+        first = torch.arange(npp, device=dev)[None] * pg
+        tbl = torch.where(first < lens[:, None], tbl, torch.full_like(tbl, -1))
         q = torch.randn(B, H, d, generator=g, device=dev).to(dtype)
-        kp = torch.randn(n_pages, pg, hkv, d, generator=g,
+        kp = torch.randn(B * npp, pg, hkv, d, generator=g,
                          device=dev).to(dtype)
-        vp = torch.randn(n_pages, pg, hkv, dv, generator=g,
+        vp = torch.randn(B * npp, pg, hkv, dv, generator=g,
                          device=dev).to(dtype)
-        got = A.paged_decode_attention(q, kp, vp, tbl, lens)
         want = A.paged_decode_attention_plain(q, kp, vp, tbl, lens)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if not err <= ATTN_TOL[dtype] or (lens == 0).any() and \
-                bool(got[lens == 0].float().any()):
-            raise AssertionError(f"paged decode {name}: err {err}")
-        out[f"{name}_max_abs_err"] = err
-        if name != "bf16":
-            continue
-        ms = cuda_ms(lambda: A.paged_decode_attention(q, kp, vp, tbl, lens),
-                     200)
-        plain = cuda_ms(lambda: A.paged_decode_attention_plain(
-            q, kp, vp, tbl, lens), 20)
-        live = int(lens.sum())
-        used_pages = int((-(-lens // pg)).sum())
-        n_bytes = (2 * live * hkv * d * 2 + 2 * B * H * d * 2 + B * 4
-                   + used_pages * 4)
-        out["timing"] = (ms, plain, bound_ms(n_bytes, 4 * live * H * d,
-                                             dtype), None)
+        r = decode_close(A.paged_decode_attention(q, kp, vp, tbl, lens),
+                         want, lens)
+        if not r["ok"]:
+            raise AssertionError(f"paged decode {name}: {r}")
+        out[name] = r
+        if name == "bf16_short":
+            plain = cuda_ms(lambda: A.paged_decode_attention_plain(
+                q, kp, vp, tbl, lens), 20)
+        del q, kp, vp, want
+    torch.cuda.empty_cache()
+    out["times"] = time_decode(A.paged_decode_attention, "paged", dev)
+    t = out["times"]["short"]
+    out["timing"] = (t["device_ms"], plain, t["bound"], None)
     return out
+
+
+def decode_row(res: dict) -> dict:
+    """The kernels line's fields for a decode kernel from ``check_decode``
+    or ``check_paged``: the largest errors of its bf16 cases (absolute,
+    norm-relative, and norm-relative in one slot); ms, the device time a
+    call at the short shape (the engine's), cold; beside it the issue
+    pace, and both at the filled and long shapes with their bounds."""
+    bf16 = [e for case, e in res.items() if case.startswith("bf16")]
+    times = res["times"]
+    return {"max_abs_err": max(e["max_abs"] for e in bf16),
+            "norm_rel_err": max(e["norm_rel"] for e in bf16),
+            "timing": res["timing"],
+            "extra": {"max_slot_norm_rel_err":
+                      max(e["slot_norm_rel"] for e in bf16),
+                      "issue_ms": times["short"]["issue_ms"], **{
+                          f"{shape}_context": {
+                              "ms": times[shape]["device_ms"],
+                              "issue_ms": times[shape]["issue_ms"],
+                              "bound_ms": times[shape]["bound"][0],
+                              "library_ms": times[shape].get("library_ms")}
+                          for shape in ("filled", "long")}}}
 
 
 # ------------------------------------------------------------------ engine
@@ -1335,12 +1384,8 @@ def main() -> None:
                          "prefill_full ran")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    if not (SRC / "repro_torch" / "csrc").is_dir():
-        fail("the port's sources (src/repro_torch) are not beside this "
-             "script; run it from the root of a checkout")
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
-    sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1389,11 +1434,11 @@ def main() -> None:
             "decode_attention": dict(
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:87",
-                max_abs_err=dec["bf16_max_abs_err"], timing=dec["timing"]),
+                **decode_row(dec)),
             "paged_decode_attention": dict(
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:166",
-                max_abs_err=pag["bf16_max_abs_err"], timing=pag["timing"]),
+                **decode_row(pag)),
         }
         for name, parts in (("flash_fwd", ("out", "lse")),
                             ("flash_bwd", ("dq", "dk", "dv"))):
@@ -1467,7 +1512,8 @@ def main() -> None:
                       **({"max_norm_rel_err": r["norm_rel_err"]}
                          if "norm_rel_err" in r else {}),
                       **({"kernel_ms": r["kernel_ms"]}
-                         if "kernel_ms" in r else {})})
+                         if "kernel_ms" in r else {}),
+                      **r.get("extra", {})})
     emit({"kernels": table})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

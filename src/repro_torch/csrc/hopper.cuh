@@ -1,9 +1,10 @@
 // Hopper building blocks for the port's hand-written kernels, as inline
 // PTX: shared-memory addresses, mbarriers, TMA tile loads, warpgroup MMA
-// (wgmma) with its shared-memory descriptors, and the sm_80 tools the
-// backward uses (cp.async, ldmatrix, mma.sync).  Header-only; every
-// function is a thin wrapper around one or a few PTX instructions, named
-// after them.  Needs sm_90a (wgmma).
+// (wgmma) with its shared-memory descriptors, the sm_80 tools the
+// backward uses (cp.async, ldmatrix, mma.sync), and cluster barriers and
+// distributed shared memory.  Header-only; every function is a thin
+// wrapper around one or a few PTX instructions, named after them.  Needs
+// sm_90a (wgmma).
 #pragma once
 
 #include <cuda.h>
@@ -299,6 +300,32 @@ __device__ __forceinline__ void ldsm_bt(uint32_t (&b)[4],
                                         int n, int lane) {
   ldsm_x4_t(b, tile + (k + lane % 8 + 8 * ((lane / 8) % 2)) * LD + n +
                    8 * (lane / 16));
+}
+
+// ------------------------------------------------------------- clusters
+
+// Every thread of every CTA of the thread-block cluster arrives, then
+// waits for all the others: shared-memory writes before it are visible to
+// the cluster's reads after it (arrive releases, wait acquires).  Also a
+// barrier for the CTA's own threads.  A CTA must not leave while another
+// may still read its shared memory, so a read of a remote CTA is followed
+// by one more of these before either leaves.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n"
+               "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The f32 at the offset of ``p`` in the shared memory of the cluster's CTA
+// of rank ``rank`` (distributed shared memory).  No memory clobber, so that
+// loads issued one after the other overlap; order them after the writes
+// they read with cluster_sync.
+__device__ __forceinline__ float ld_dsmem(const float* p, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote));
+  return v;
 }
 
 // c (16 x 8, f32) += a (16 x 16, row) * b (16 x 8, col), bf16 operands.

@@ -10,6 +10,11 @@
                       (csrc/mamba_scan.cu)
   ssd_ablation      — where the bf16 SSD scan's time goes: its kernels
                       timed on the card with one part of the work cut
+  decode_bench      — the bf16 decode kernels timed cold on the card, at
+                      the engine's short contexts, filled caches and a
+                      long context, beside another checkout's
+  timing            — the card's rates and bounds, its name and power
+                      limit, CUDA-event and profiler clocks
   ref               — plain torch oracles
   ops               — the per-op entry points the models call
 

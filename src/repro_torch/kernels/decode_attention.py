@@ -3,11 +3,13 @@
 Port of ``repro/kernels/decode_attention.py::decode_attention_pallas``
 (the dense per-slot cache) and ``paged_decode_attention_pallas`` (a
 paged pool, ``page_table[b, j]`` naming the page of key block ``j``) as
-CUDA C++ in ``csrc/decode_attention.cu``: one CTA per (S-split, kv head,
-slot) streams its K/V rows once with 16-byte loads under an f32 online
-softmax, and a second pass merges the splits; the two layouts differ
-only in where a row lies.  The source note there says what bounds it
-(bytes: ~2*G flops per cached byte) and how the design answers it.
+CUDA C++ in ``csrc/decode_attention.cu``.  bf16 is one launch a call: a
+cluster of up to 8 CTAs per (kv head, slot) splits the slot's live keys,
+streams K and V through a ``cp.async`` ring into ``mma.sync`` products
+under an f32 online softmax, and merges on chip; f32 keeps a CTA per
+256-key chunk and a second pass that merges the chunks.  The two layouts
+differ only in where a row lies.  The source note there says what bounds
+it (bytes: ~2*G flops per cached byte) and how the design answers it.
 
 ``decode_attention_plain`` and ``paged_decode_attention_plain`` are the
 plain torch versions: the wrappers take them only for CPU tensors; CUDA
@@ -16,12 +18,12 @@ tensors launch the kernel or raise.  All mask positions
 give 0 for a slot with no live position, as the Pallas kernels do.  The
 paged forms never read the table entry of a page that starts at or past
 ``lengths[b]`` (such entries may hold -1).  The paged decode lies on no
-path of the engine, which decodes from dense slot caches (ROADMAP Queue
-2 item 4).
+path of the engine, which decodes from dense slot caches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -29,9 +31,11 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-SPLIT = 256          # keys per CTA; a multiple of the kernel's 64-key tile
+SPLIT = 256          # keys per CTA of the f32 kernel
+MAX_CLUSTER = 8      # CTAs per (kv head, slot) of the bf16 kernel, at most
+LONG_SHARE = 2048    # keys a bf16 CTA may stream before more CTAs pay off
 HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 8        # query heads per kv head the kernel holds in registers
+MAX_GROUP = 8        # query heads per kv head (the rows of an mma tile)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -122,21 +126,8 @@ def _launch_paged(q, k_pages, v_pages, page_table, lengths, scale):
             or not page_table.is_contiguous():
         raise ValueError(f"page_table must be a contiguous int32 tensor on "
                          f"{q.device}")
-    dev = q.device
-    g = H // hkv
-    n_split = max(1, -(-(npp * page) // SPLIT))
-    out = torch.empty(B, H, dv, dtype=q.dtype, device=dev)
-    part_acc = torch.empty(B * hkv * n_split * g * dv, dtype=torch.float32,
-                           device=dev)
-    part_ml = torch.empty(B * hkv * n_split * g * 2, dtype=torch.float32,
-                          device=dev)
-    err = _lib().paged_decode_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), B, H, hkv, npp, page, dk,
-        dv, _DTYPES[q.dtype], SPLIT, n_split, float(scale or dk ** -0.5),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "paged_decode_attention")
+    out = _run(q, k_pages, v_pages, page_table, lengths, npp * page, page,
+               dv, scale, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
 
@@ -144,7 +135,6 @@ def _launch_paged(q, k_pages, v_pages, page_table, lengths, scale):
 def _launch(q, k_cache, v_cache, lengths, scale):
     B, H, dk = q.shape
     _, S_max, hkv, dv = v_cache.shape
-    dev = q.device
     if dk != dv or dk not in HEAD_DIMS:
         raise ValueError(f"head dims {dk}/{dv}: the kernel takes equal q/k "
                          f"and v widths in {HEAD_DIMS}")
@@ -152,22 +142,64 @@ def _launch(q, k_cache, v_cache, lengths, scale):
         raise ValueError(f"shapes q {tuple(q.shape)} k "
                          f"{tuple(k_cache.shape)} v {tuple(v_cache.shape)}")
     _check_common(q, k_cache, v_cache, lengths, H, hkv)
-    g = H // hkv
-    n_split = max(1, -(-S_max // SPLIT))
-    out = torch.empty_like(q)
-    part_acc = torch.empty(B * hkv * n_split * g * dk, dtype=torch.float32,
-                           device=dev)
-    part_ml = torch.empty(B * hkv * n_split * g * 2, dtype=torch.float32,
-                          device=dev)
-    err = _lib().decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), B, H, hkv, S_max, dk, _DTYPES[q.dtype], SPLIT,
-        n_split, float(scale or dk ** -0.5),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "decode_attention")
+    out = _run(q, k_cache, v_cache, None, lengths, S_max, 0, dv, scale,
+               "decode_attention")
     decode_attention.launches += 1
     return out
+
+
+def _run(q, k, v, page_table, lengths, cap, page, dv, scale, what,
+         splits=None):
+    """One call of the C entry point over ``cap`` cached positions a slot
+    (``page_table`` None: the dense cache).  bf16 is one cluster launch
+    of ``splits`` CTAs per (kv head, slot), ``_splits``'s choice unless
+    given, and needs no scratch; f32 gets its chunks' partials."""
+    B, H, dk = q.shape
+    hkv = k.shape[2]
+    if splits is None:
+        splits = _splits(q.device, B * hkv, cap) \
+            if q.dtype == torch.bfloat16 else max(1, -(-cap // SPLIT))
+    out = torch.empty(B, H, dv, dtype=q.dtype, device=q.device)
+    part_acc = part_ml = None
+    if q.dtype == torch.float32:
+        n = B * hkv * splits * (H // hkv)
+        part_acc = torch.empty(n * dv, dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(n * 2, dtype=torch.float32, device=q.device)
+    err = _lib().decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if page_table is None else page_table.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(),
+        None if part_acc is None else part_acc.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(), B, H, hkv, cap,
+        page, dk, dv, _DTYPES[q.dtype], splits, float(scale or dk ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, what)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _splits(device, pairs: int, cap: int) -> int:
+    """CTAs of the bf16 kernel's cluster per (kv head, slot), a power of
+    two up to 8 and no more than the cache has 64-key tiles.  It doubles
+    while all ``pairs`` clusters still fit one wave at one CTA an SM; past
+    that only while a CTA would stream more than ``LONG_SHARE`` keys of
+    ``cap``.  The host does not see the lengths, so the first rule serves
+    the engine's calls (8 slots x 8 kv heads, S_max 2048, a few hundred
+    live keys a slot: 2 CTAs), where a call's fixed cost, which grows with
+    the cluster, outweighs its reads; the second serves S_max above 4096
+    at 8 x 8 (8 CTAs at 32768), which none of the engine's calls have
+    today.  ``kernels/decode_bench.py --sweep`` times every size at a
+    shape on each side."""
+    sms = _sm_count(device.index)
+    n = 1
+    while n < MAX_CLUSTER and 64 * n < cap and (
+            2 * n * pairs <= sms or cap > LONG_SHARE * n):
+        n *= 2
+    return n
 
 
 def _lib():
@@ -175,9 +207,6 @@ def _lib():
     fn = lib.decode_attention
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 7 + [I] * 8 + [ctypes.c_float, P]
+        fn.argtypes = [P] * 8 + [I] * 9 + [ctypes.c_float, P]
         fn.restype = I
-        paged = lib.paged_decode_attention
-        paged.argtypes = [P] * 8 + [I] * 10 + [ctypes.c_float, P]
-        paged.restype = I
     return lib

@@ -21,7 +21,7 @@ import subprocess
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, timing
 from repro_torch.kernels import mamba_scan as MS
 
 SHAPE = dict(b=1, s=32768, nh=8, dh=1024, N=16, chunk=256)
@@ -82,18 +82,10 @@ def build(names) -> dict:
 
 def kernel_ms(call, iters: int = 10) -> dict:
     """Mean device time of each of ``KERNELS`` a ``call()``, from
-    ``torch.profiler`` over ``iters`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            call()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        for k in KERNELS:
-            if f"::{k}(" in e.key:
-                out[k] = e.self_device_time_total / 1e3 / iters
+    ``timing.device_ms`` over ``iters`` calls."""
+    seen = timing.device_ms(call, iters)
+    out = {k: ms for key, (ms, _) in seen.items() for k in KERNELS
+           if f"::{k}(" in key}
     if set(out) != set(KERNELS):
         raise AssertionError(f"the profiler saw {out}, not {KERNELS}")
     return out
@@ -102,9 +94,7 @@ def kernel_ms(call, iters: int = 10) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("ssd_ablation needs a CUDA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = timing.card_line()
     print(card, flush=True)
     order = list(CUTS) + ["as_built"]
     libs = build(CUTS)
@@ -130,18 +120,8 @@ def main() -> None:
             _build._loaded["mamba_scan"] = ctypes.CDLL(str(libs[name]))
             y, _ = call()
             ratio = ((y.double() - want).abs() / bar).max().item()
-            for _ in range(3):
-                call()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(20):
-                call()
-            stop.record()
-            stop.synchronize()
             print(json.dumps({"variant": name, "card": card,
-                              "ms": start.elapsed_time(stop) / 20,
+                              "ms": timing.cuda_ms(call, 20, warmup=3),
                               "kernel_ms": kernel_ms(call),
                               "y_over_bar": ratio}), flush=True)
     finally:

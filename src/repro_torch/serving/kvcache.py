@@ -6,8 +6,9 @@ Port of ``repro/serving/kvcache.py``:
   * ``SlotCaches`` — the dense per-slot decode state
     (``model.decode_state``), with freeze/thaw slot offload to a
     ``FrozenStore`` in host memory and slot recycling.  The engine runs
-    this dense layout; the paged layout waits for the paged-decode
-    kernel (ROADMAP Queue 2 item 4).
+    this dense layout; the paged-decode kernel
+    (``kernels/decode_attention.py::paged_decode_attention``) exists,
+    but no pool of pages is wired into the engine yet.
 """
 from __future__ import annotations
 

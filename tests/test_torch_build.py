@@ -30,8 +30,8 @@ def _name(source: str) -> str:
 
 @pytest.mark.parametrize("edited, changes", [
     ("flash_attention.cu", {"flash_attention"}),
-    ("hopper.cuh", {"flash_attention", "mamba_scan"}),
-    ("inner.cuh", {"flash_attention", "mamba_scan"}),
+    ("hopper.cuh", {"decode_attention", "flash_attention", "mamba_scan"}),
+    ("inner.cuh", {"decode_attention", "flash_attention", "mamba_scan"}),
     ("mamba_scan.cu", {"mamba_scan"}),
     ("unused.cuh", set()),
 ])

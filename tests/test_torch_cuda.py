@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, over every head width and query-group size the decode and flash
-kernels take, the paged decode's page sizes and unequal k/v widths, the
+kernels take, the decode kernel's edge lengths and its one launch a
+call, the paged decode's page sizes and unequal k/v widths, the
 SSD scan's chunk, state and head widths, and every stock enforcement
 program.  Marked ``cuda``: without a
 card these tests skip.  On the card (no JAX there, so skip the JAX
@@ -24,6 +25,17 @@ from repro_torch.kernels import ref as R
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the decode kernels' bar for each live slot, norm-relative: a slot of n
+# live keys has |out| near sqrt(e / n), ~0.01 at 32768 keys, so TOL alone
+# would pass a slot that lost a CTA's share of its keys
+SLOT_NORM_REL = 1e-2
+
+
+def slot_norm_rel(got, want, lengths) -> float:
+    """The largest ||got_b - want_b|| / ||want_b|| over the live slots b."""
+    got, want = got.double().flatten(1), want.double().flatten(1)
+    rel = (got - want).norm(dim=1) / want.norm(dim=1).clamp(min=1e-30)
+    return rel[lengths > 0].max().item()
 
 
 @pytest.fixture
@@ -38,6 +50,8 @@ def dev():
 @pytest.mark.parametrize("B,H,hkv,d,s_max", [
     (2, 8, 4, 64, 256), (1, 4, 4, 32, 128), (3, 6, 2, 128, 192),
     (8, 24, 8, 128, 2048), (2, 8, 1, 64, 77), (4, 16, 2, 32, 513),
+    (2, 10, 2, 64, 300), (2, 12, 2, 128, 1000), (3, 14, 2, 32, 129),
+    (2, 8, 8, 128, 64), (1, 24, 8, 128, 32768),
 ])
 def test_decode_attention_kernel(dev, B, H, hkv, d, s_max, dtype):
     g = torch.Generator(device=dev).manual_seed(B * 1000 + s_max)
@@ -54,6 +68,66 @@ def test_decode_attention_kernel(dev, B, H, hkv, d, s_max, dtype):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= TOL[dtype]
+    assert slot_norm_rel(got, want, lengths) <= SLOT_NORM_REL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_edge_lengths(dev, dtype):
+    """Lengths 0, 1, 63, 64, 65, on and beside the boundaries of the bf16
+    kernel's CTA shares, and S_max = 2055, no multiple of 64: each slot
+    against the plain version, an empty slot exactly 0.  bf16 runs at
+    every cluster size (1, 2, 4 and 8 CTAs a slot and kv head: a slot of
+    2048 keys gives each CTA 2048, 1024, 512 or 256, one of 257 gives
+    five tiles as 5, 3+2, 2+2+1+0 or 1+1+1+1+1+0+0+0) as well as at
+    ``_splits``'s choice."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, H, hkv, d, s_max = 12, 16, 2, 64, 2055
+    q = torch.randn(B, H, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, s_max, hkv, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, s_max, hkv, d, generator=g, device=dev).to(dtype)
+    lengths = torch.tensor([0, 1, 63, 64, 65, 255, 256, 257, 1024, 2048,
+                            2049, 2055], dtype=torch.int32, device=dev)
+    want = A.decode_attention_plain(q, k, v, lengths)
+    runs = [A.decode_attention(q, k, v, lengths)]
+    if dtype == torch.bfloat16:
+        runs += [A._run(q, k, v, None, lengths, s_max, 0, d, None,
+                        "decode_attention", splits=n) for n in (1, 2, 4, 8)]
+    torch.cuda.synchronize()
+    for got in runs:
+        assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+        assert slot_norm_rel(got, want, lengths) <= SLOT_NORM_REL
+        assert not got[0].float().any()
+
+
+def test_bf16_decode_is_one_kernel_and_one_allocation(dev):
+    """A bf16 call, dense or paged, runs exactly one kernel (the
+    profiler's count) and allocates only its output."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(8, 24, 128, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(8, 256, 8, 128, generator=g, device=dev).to(
+        torch.bfloat16)
+    lengths = torch.tensor([1, 256, 37, 100, 0, 64, 65, 200],
+                           dtype=torch.int32, device=dev)
+    table = torch.arange(8 * 16, dtype=torch.int32, device=dev).reshape(8, 16)
+    pool = k.reshape(8 * 16, 16, 8, 128)
+    calls = {"dense": lambda: A.decode_attention(q, k, k, lengths),
+             "paged": lambda: A.paged_decode_attention(q, pool, pool, table,
+                                                       lengths)}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        after = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert sum(e.count for e in kernels) == 1, (name, kernels)
+        assert "decode_mma_kernel" in kernels[0].key, name
+        assert after - before == 1, name
 
 
 def test_decode_attention_refuses_what_it_cannot_take(dev):
@@ -219,6 +293,7 @@ def test_flash_refuses_what_it_cannot_take(dev):
     (2, 8, 4, 64, 64, 16, 8), (2, 8, 4, 64, 64, 32, 4),
     (8, 24, 8, 128, 128, 16, 128), (3, 6, 2, 32, 32, 16, 5),
     (2, 8, 1, 128, 64, 32, 6), (4, 16, 2, 64, 128, 16, 40),
+    (2, 7, 1, 32, 128, 32, 9), (2, 10, 2, 128, 32, 16, 33),
 ])
 def test_paged_decode_kernel(dev, B, H, hkv, dk, dv, page, npp, dtype):
     """A permuted pool, -1 past each length (never read), one empty slot
@@ -244,6 +319,7 @@ def test_paged_decode_kernel(dev, B, H, hkv, dk, dv, page, npp, dtype):
     want = A.paged_decode_attention_plain(q, kp, vp, table, lengths)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert slot_norm_rel(got, want, lengths) <= SLOT_NORM_REL
     assert not got[0].float().any()
 
 

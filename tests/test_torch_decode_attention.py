@@ -2,12 +2,16 @@
 the plain torch version (what the wrapper runs on CPU tensors) and the
 port's flash-decoding oracle against ``decode_attention_pallas`` in
 interpret mode and ``ref.decode_attention_ref``, over the sweep of
-``tests/test_kernels.py`` plus ragged ``S_max`` the Pallas kernel's
-block assertion refuses; and the paged form against
+``tests/test_kernels.py`` plus a group of 6 and ragged ``S_max`` the
+Pallas kernel's block assertion refuses; the paged form against
 ``paged_decode_attention_pallas`` and ``ref.paged_decode_attention_ref``
-at the parameters of ``tests/test_kernels.py``, with -1 table entries
-past each length.  Tolerances as ``tests/test_kernels.py``: 2e-5 in f32,
-2e-2 in bf16."""
+at the parameters of ``tests/test_kernels.py`` and at groups of 3 and 6,
+with -1 table entries past each length; and a CPU emulation of the bf16
+kernel's roundings against the plain version, with a planted fault that
+its bars must fail.  Tolerances as
+``tests/test_kernels.py``: 2e-5 in f32, 2e-2 in bf16."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +24,8 @@ from repro_torch.kernels import decode_attention as TD
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
 
-SWEEP = [(2, 8, 4, 64, 256), (1, 4, 4, 32, 128), (3, 6, 2, 128, 192)]
+SWEEP = [(2, 8, 4, 64, 256), (1, 4, 4, 32, 128), (3, 6, 2, 128, 192),
+         (2, 12, 2, 64, 320)]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
@@ -148,3 +153,137 @@ def test_paged_empty_slot_is_zero():
         torch.from_numpy(vp[:, :8]), table,
         torch.tensor([0, 12], dtype=torch.int32))
     assert not got[0].any() and got[1].abs().sum() > 0
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("H,hkv", [(6, 2), (12, 2)])
+def test_paged_plain_matches_pallas_group_not_power_of_two(H, hkv, dtype):
+    """Groups of 3 and 6 query heads a kv head over a permuted pool of
+    16-token pages, ragged lengths (one inside the first page, one a
+    whole number of pages), -1 past each length for the port."""
+    tol = DTYPES[dtype][2]
+    B, dk, page, npp, n_pages = 3, 64, 16, 6, 24
+    rng = np.random.default_rng(H)
+    q = rng.standard_normal((B, H, dk), np.float32)
+    kp = rng.standard_normal((n_pages, page, hkv, dk), np.float32)
+    vp = rng.standard_normal((n_pages, page, hkv, dk), np.float32)
+    table = rng.permutation(n_pages)[:B * npp].reshape(B, npp).astype(
+        np.int32)
+    lengths = np.array([37, 96, 1], np.int32)
+    live = np.arange(npp)[None] * page < lengths[:, None]
+    holey = np.where(live, table, -1).astype(np.int32)
+    (jq, jk, jv), (tq, tk, tv) = both((q, kp, vp), dtype)
+    pallas = paged_decode_attention_pallas(
+        jq, jk, jv, jnp.asarray(table), jnp.asarray(lengths), interpret=True)
+    plain = TD.paged_decode_attention_plain(
+        tq, tk, tv, torch.from_numpy(holey), torch.from_numpy(lengths))
+    close(plain, pallas, tol)
+
+
+LOG2E = 1.4426950408889634
+# the bf16 decode kernel's bar for each live slot, norm-relative, as on
+# the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)
+SLOT_NORM_REL = 1e-2
+
+
+def emulate_bf16_kernel(q, k, v, lengths, splits, drop=None):
+    """What the bf16 kernel (``csrc/decode_attention.cu``,
+    ``decode_mma_kernel``) computes, with its roundings, in f32 on the
+    CPU: a slot's live 64-key tiles split evenly over ``splits`` CTAs,
+    each tile's keys 16 to each of 4 warps; each warp keeps an online
+    softmax in log2 units over its keys, rounds P once to bf16 before
+    P V and sums the rounded P into l; warps, then CTAs, merge in f32;
+    out is rounded once to bf16.  q, k and v are exact in bf16, so S
+    carries only f32 rounding.  ``drop``: a CTA whose tiles are skipped
+    (a planted fault)."""
+    B, H, dk = q.shape
+    S, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // hkv
+    c = dk ** -0.5 * LOG2E
+    out = torch.zeros(B, H, dv)
+    for b in range(B):
+        n = min(int(lengths[b]), S)
+        per = -(-(-(-n // 64)) // splits)     # tiles a CTA
+        if per == 0:
+            continue
+        keys = splits * per * 64
+        kp = torch.zeros(keys, hkv, dk)
+        vp = torch.zeros(keys, hkv, dv)
+        kp[:n], vp[:n] = k[b, :n].float(), v[b, :n].float()
+        # (CTA, tile, warp, key) -> the key's position
+        kr = kp.reshape(splits, per, 4, 16, hkv, dk)
+        vr = vp.reshape(splits, per, 4, 16, hkv, dv)
+        s = torch.einsum("hgd,rtwkhd->hgrtwk",
+                         q[b].float().reshape(hkv, G, dk), kr) * c
+        pos = torch.arange(keys).reshape(splits, per, 4, 16)
+        s = torch.where(pos < n, s, torch.tensor(-math.inf))
+        if drop is not None:
+            s[:, :, drop] = -math.inf
+        m = torch.full((hkv, G, splits, 4), -math.inf)
+        l = torch.zeros(hkv, G, splits, 4)
+        acc = torch.zeros(hkv, G, splits, 4, dv)
+        for i in range(per):
+            m_new = torch.maximum(m, s[:, :, :, i].amax(-1))
+            base = torch.where(torch.isinf(m_new), 0.0, m_new)
+            alpha = torch.exp2(m - base)
+            p = torch.exp2(s[:, :, :, i] - base[..., None]).to(
+                torch.bfloat16).float()
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "hgrwk,rwkhe->hgrwe", p, vr[:, i])
+            m = m_new
+        m, l = m.reshape(hkv, G, -1), l.reshape(hkv, G, -1)
+        acc = acc.reshape(hkv, G, -1, dv)
+        top = m.amax(-1, keepdim=True)
+        w = torch.exp2(m - torch.where(torch.isinf(top), 0.0, top))
+        o = (acc * w[..., None]).sum(2) / (l * w).sum(-1).clamp(
+            min=1e-30)[..., None]
+        out[b] = o.reshape(H, dv)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,H,hkv,d,S,lengths,splits", [
+    (8, 24, 8, 128, 2048, [1, 2048, 37, 256, 257, 1000, 1555, 2047], 4),
+    (3, 12, 2, 64, 32768, [32768, 20001, 1], 8),
+    (8, 16, 2, 32, 320, [0, 1, 2, 63, 64, 65, 129, 320], 1),
+    (8, 16, 2, 32, 320, [0, 1, 2, 63, 64, 65, 129, 320], 8),
+])
+def test_bf16_kernel_roundings_hold_the_bar(B, H, hkv, d, S, lengths,
+                                            splits):
+    """One bf16 rounding of P (the kernel's choice; the flash kernels'
+    hi + lo split is not needed here) keeps the emulated kernel within
+    the bf16 bars of the plain version: 2e-2 for every element and
+    SLOT_NORM_REL norm-relative for every live slot (the absolute bar
+    alone is as large as a slot's values at 32768 keys, |out| ~ sqrt(e /
+    n)), at the filled serving shape, at S 32768 and at short lengths
+    where few keys share the weight, with zeros for an empty slot."""
+    rng = np.random.default_rng(S + splits)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(torch.bfloat16) for shape in
+               ((B, H, d), (B, S, hkv, d), (B, S, hkv, d)))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    got = emulate_bf16_kernel(q, k, v, lens, splits)
+    want = TD.decode_attention_plain(q, k, v, lens)
+    close(got, want.float().numpy(), DTYPES["bfloat16"][2])
+    got, want = got.double().flatten(1), want.double().flatten(1)
+    rel = (got - want).norm(dim=1) / want.norm(dim=1).clamp(min=1e-30)
+    assert rel[lens > 0].max().item() <= SLOT_NORM_REL
+    assert not got[lens == 0].any()
+
+
+def test_slot_bar_fails_a_dropped_share():
+    """The bars can fail a wrong kernel: with one of 8 CTAs' shares of a
+    slot skipped at S 32768, every element still lies within the
+    absolute bar of 2e-2 (|out| is ~0.01 there), and the slot's
+    norm-relative error misses SLOT_NORM_REL."""
+    B, H, hkv, d, S = 3, 12, 2, 64, 32768
+    rng = np.random.default_rng(S + 8)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(torch.bfloat16) for shape in
+               ((B, H, d), (B, S, hkv, d), (B, S, hkv, d)))
+    lens = torch.tensor([32768, 20001, 1], dtype=torch.int32)
+    got = emulate_bf16_kernel(q, k, v, lens, 8, drop=1).double().flatten(1)
+    want = TD.decode_attention_plain(q, k, v, lens).double().flatten(1)
+    assert (got - want).abs().max().item() <= DTYPES["bfloat16"][2]
+    rel = (got - want).norm(dim=1) / want.norm(dim=1)
+    assert rel.max().item() > SLOT_NORM_REL
