@@ -15,9 +15,13 @@ Phases, one JSON line each on standard output:
                  ``cuobjdump -sass``; fails where one is missing.
   kernels        each CUDA kernel against its plain PyTorch version on the
                  card, at the shapes its path gives it: the fused charge
-                 and gate bit-exact over randomized tables and every stock
-                 program; decode attention within 2e-5 (f32) and 2e-2
-                 (bf16) and each slot within 1e-2 norm-relative, at B=8,
+                 and gate bit-exact over randomized tables and over
+                 engine-shaped ones of 40, 1,032 and 4,104 domains
+                 (negative amounts, duplicates, an in-batch ancestor
+                 throttle, m = 0), every stock program, timed cold by the
+                 profiler beside an empty kernel's launch floor; decode
+                 attention within 2e-5 (f32) and 2e-2 (bf16) and each
+                 slot within 1e-2 norm-relative, at B=8,
                  H=24, Hkv=8, d=128, S_max=2048 with the short contexts
                  the engine serves and with ragged lengths up to S_max, a
                  ragged S_max, and in bf16 at S_max=32768 (123,787 live
@@ -140,15 +144,10 @@ def to_device(tree, device):
 # ------------------------------------------------------------------ kernels
 
 
-def stock_registries(P, S):
+def stock_registries():
     """Every stock program alone, and all of them in one registry."""
-    grad = P.GraduatedThrottleProgram(step_ms=10.0, overage_gain=7.5)
-    tb = P.TokenBucketProgram(step_ms=10.0, bucket_capacity=6.0,
-                              refill=(0.7, 1.3, 2.9))
-    wf = S.WeightedFairProgram(step_ms=10.0)
-    base = P.PolicyProgram()
-    return {"graduated": (grad,), "token_bucket": (tb,),
-            "weighted_fair": (wf,), "mixed": (grad, tb, wf, base)}
+    from repro_torch.kernels.enforcement_bench import registries
+    return registries()
 
 
 def random_table(rng, n, progs, step, exact, P, device):
@@ -223,15 +222,22 @@ def table_diff(a: dict, b: dict, keys) -> tuple[bool, float]:
 
 
 def check_enforcement(dev, seed: int) -> dict:
+    """The fused charge and gate bit-exact against their plain versions:
+    randomized 40-domain tables, consecutive steps feeding forward; then
+    engine-shaped tables at the bench's three shapes (``engine`` n 40,
+    ``wide`` n 1,032, ``beyond`` n 4,104) with negative amounts,
+    duplicate domains, peaks under usage, program ids out of range, a
+    slot that throttles an ancestor of a later slot, and m = 0; every
+    stock registry."""
     from repro_torch.core import controller as C
     from repro_torch.core import progs as P
-    from repro_torch.core import sched as S
     from repro_torch.kernels import enforcement as K
+    from repro_torch.kernels import enforcement_bench as B
 
     keys = ("usage", "peak", "throttle_until", "prog", "mem_stall")
     charge_err = gate_err = 0.0
     cases = 0
-    for kind, progs in stock_registries(P, S).items():
+    for kind, progs in stock_registries().items():
         for case in range(6):
             rng = np.random.default_rng([seed, case, len(kind)])
             step = int(rng.integers(3, 40))
@@ -258,36 +264,76 @@ def check_enforcement(dev, seed: int) -> dict:
                 st = dict(st, **{k: got[k] for k in keys})
                 step += int(rng.integers(0, 3))
                 cases += 1
-    return {"cases": cases, "charge_max_abs_err": charge_err,
-            "gate_max_abs_err": gate_err}
+    options = (dict(negative=True, dup=True, peak_below=True,
+                    prog_oob=True),
+               dict(ancestor=True, peak_below=True), dict(empty=True))
+    shapes = {}
+    for shape, spec in B.SHAPES.items():
+        for kind, progs in stock_registries().items():
+            for i, opt in enumerate(options):
+                opt = dict(opt)
+                empty = opt.pop("empty", False)
+                st, dom, amt, step = B.engine_case(
+                    spec["slots"], progs, seed * 1000 + i, dev, **opt)
+                if empty:
+                    dom, amt = dom[:0], amt[:0]
+                got, gk, sk = K.fused_charge_batch(st, dom, amt, step, progs)
+                want, gp, sp = C._plain_charge_batch(st, dom, amt, step,
+                                                     progs)
+                same, err = table_diff(got, want, keys)
+                same &= torch.equal(gk, gp) and torch.equal(sk, sp)
+                if not same:
+                    raise AssertionError(
+                        f"fused charge differs from the plain version "
+                        f"({shape}, {kind}, {opt}, empty={empty}): err "
+                        f"{err}")
+                if opt.get("ancestor") and not (bool(gp[0]) and not
+                                                bool(gp[1]) and bool(sp[1])):
+                    raise AssertionError(f"the in-batch ancestor throttle "
+                                         f"did not happen ({shape}, {kind})")
+                gate_k = K.fused_slot_gate(got, dom, step + 1, progs)
+                gate_p = C._plain_slot_gate(got, dom, step + 1, progs)
+                if not torch.equal(gate_k, gate_p):
+                    raise AssertionError(f"fused gate differs ({shape}, "
+                                         f"{kind}, {opt})")
+                shapes[shape] = shapes.get(shape, 0) + 1
+                cases += 1
+    return {"cases": cases, "engine_shaped_cases": shapes,
+            "charge_max_abs_err": charge_err, "gate_max_abs_err": gate_err}
 
 
 def time_enforcement(dev, seed: int) -> dict:
-    """The two kernels at the engine's shapes: n = 4 * 8 + 8 domains,
-    m = 8 slots, the stock graduated program (P = 4)."""
+    """The two kernels at the bench's ``engine`` shape (engine_full's
+    table: n = 4 * 8 + 8 domains, m = 8 slots, the graduated program,
+    P = 4): the device time a call from the profiler, cold (a 64 MB
+    write between calls), the issue pace, the launch floor (an empty
+    kernel through the same ctypes path) and the bytes bound."""
     from repro_torch.core import controller as C
-    from repro_torch.core import progs as P
     from repro_torch.kernels import enforcement as K
+    from repro_torch.kernels import enforcement_bench as B
 
-    progs = (P.GraduatedThrottleProgram(step_ms=10.0),)
-    rng = np.random.default_rng([seed, 99])
-    n, m = 40, 8
-    st, live = random_table(rng, n, progs, 7, False, P, dev)
-    dom, amt = random_batch(rng, live, m, dev)
-    width = st["prog"].shape[1]
-    ms = cuda_ms(lambda: K.fused_charge_batch(st, dom, amt, 7, progs), 200)
-    plain = cuda_ms(lambda: C._plain_charge_batch(st, dom, amt, 7, progs),
-                    20)
-    gms = cuda_ms(lambda: K.fused_slot_gate(st, dom, 7, progs), 200)
-    gplain = cuda_ms(lambda: C._plain_slot_gate(st, dom, 7, progs), 20)
-    # bytes: every input column read once, every output written once;
-    # operations: about 40 scalar operations per ancestor per slot
-    c_bytes = (2 * m * 4 + 10 * n * 4 + n + n * width * 4
-               + 4 * n * 4 + n * width * 4 + 2 * m)
-    g_bytes = m * 4 + 2 * n * 4 + n + m
-    c_bound = bound_ms(c_bytes, 40 * 4 * m, torch.float32)
-    g_bound = bound_ms(g_bytes, 8 * 4 * m, torch.float32)
-    return {"charge": (ms, plain, c_bound), "gate": (gms, gplain, g_bound)}
+    st, dom, amt, step, progs = B.shape_case("engine", dev, seed)
+
+    def charge():
+        return K.fused_charge_batch(st, dom, amt, step, progs)
+
+    def gate():
+        return K.fused_slot_gate(st, dom, step, progs)
+
+    ms, _ = B.cold_device_ms(charge, "charge_kernel", 200, dev)
+    gms, _ = B.cold_device_ms(gate, "gate_kernel", 200, dev)
+    floor, _ = B.cold_device_ms(lambda: K.empty_launch(dev), "empty_kernel",
+                                200, dev)
+    extra = {"launch_floor_ms": floor,
+             "launch_floor_issue_ms": cuda_ms(lambda: K.empty_launch(dev),
+                                              200)}
+    plain = cuda_ms(lambda: C._plain_charge_batch(st, dom, amt, step,
+                                                  progs), 20)
+    gplain = cuda_ms(lambda: C._plain_slot_gate(st, dom, step, progs), 20)
+    return {"charge": (ms, plain, B.charge_bound(st, dom)),
+            "gate": (gms, gplain, B.gate_bound(st, dom)),
+            "charge_extra": dict(extra, issue_ms=cuda_ms(charge, 200)),
+            "gate_extra": dict(extra, issue_ms=cuda_ms(gate, 200))}
 
 
 def decode_close(got, want, lengths) -> dict:
@@ -1425,12 +1471,12 @@ def main() -> None:
                 source="src/repro_torch/csrc/enforcement.cu",
                 replaces="src/repro/kernels/enforcement.py:149",
                 max_abs_err=enf["charge_max_abs_err"],
-                timing=tim["charge"] + (None,)),
+                timing=tim["charge"] + (None,), extra=tim["charge_extra"]),
             "fused_slot_gate": dict(
                 source="src/repro_torch/csrc/enforcement.cu",
                 replaces="src/repro/kernels/enforcement.py:193",
                 max_abs_err=enf["gate_max_abs_err"],
-                timing=tim["gate"] + (None,)),
+                timing=tim["gate"] + (None,), extra=tim["gate_extra"]),
             "decode_attention": dict(
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:87",

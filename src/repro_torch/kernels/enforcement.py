@@ -1,12 +1,13 @@
 """Fused enforcement kernels — the charge/account/gate hot path on Hopper.
 
 Port of ``repro/kernels/enforcement.py`` (Pallas ``fused_charge_batch``
-and ``fused_slot_gate``) as CUDA C++ in ``csrc/enforcement.cu``: one CTA
-holds the ``(n_domains,)`` control table and the ``(n, P)`` parameter
-table in shared memory while one thread walks the request slots in
-order; the gate runs one thread per slot.  The source note there says
-what bounds the kernels (launch latency and the serial slot chain, not
-bytes or operations) and how the design answers it.
+and ``fused_slot_gate``) as CUDA C++ in ``csrc/enforcement.cu``: the
+charge stages only the domains its slots touch (their ancestor chains)
+in shared memory, decides the slots in order in one thread, and copies
+the untouched rest of the table across the grid; the gate runs one
+thread per slot.  The source note there says what bounds the kernels
+(launch latency and the serial slot chain, not bytes or operations) and
+how the design answers it.
 
 The plain versions are ``core/controller.py``'s ``_plain_charge_batch``
 and ``_plain_slot_gate`` (re-exported here as ``charge_batch_plain`` and
@@ -15,6 +16,14 @@ CUDA tensors they launch the kernel or raise.  The stock programs'
 decision code is compiled into the kernel, selected per registry slot by
 a kind code; a registry holding any other program (a user subclass) has
 no CUDA form and raises on CUDA, naming the program.
+
+The launch path is lean because the charge runs once every engine step:
+a registry's constants (kind codes, the f32 ``1 / step_ms``, the gate's
+program test) are computed once per registry and kept; the checks
+compare attributes without building messages unless one fails; the
+seven outputs are views of one allocation (``charge_outputs``); the
+kernel gets one output pointer; the stream handle is read without a
+``Stream`` object.
 
 This module is a decision module for tracelint purposes: the wrappers
 admit no Python branches on tensor values and no suppression pragmas;
@@ -42,6 +51,8 @@ _KIND_CODES = {PolicyProgram: 0, GraduatedThrottleProgram: 1,
                WeightedFairProgram: 1, TokenBucketProgram: 2}
 _MAX_PARAMS = 16
 _MAX_REGISTRY = 16
+_INT_COLUMNS = ("parent", "high", "max", "low", "priority", "prog_id",
+                "usage", "peak", "throttle_until", "mem_stall")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -92,6 +103,29 @@ def kind_codes(progs) -> list:
     return codes
 
 
+# (program types, step_ms) -> registry constants; a pure function of
+# its key, so entries never go stale
+_REGISTRY: dict = {}
+
+
+def registry_constants(progs) -> tuple:
+    """``(kinds, n_kinds, inv_step, stock_gate)`` of a registry: the kind
+    codes packed 4 bits a slot, their count, the f32 ``1 / step_ms``
+    that ``step_reciprocal`` gives, and whether every program gates as
+    ``PolicyProgram.on_gate`` does.  Computed once per registry; raises
+    (every call) for a program with no CUDA form."""
+    key = (tuple(map(type, progs)), progs[0].step_ms)
+    hit = _REGISTRY.get(key)
+    if hit is None:
+        codes = kind_codes(progs)
+        hit = (sum(c << (4 * i) for i, c in enumerate(codes)), len(codes),
+               float(step_reciprocal(progs)),
+               all(type(p).on_gate is PolicyProgram.on_gate
+                   for p in progs))
+        _REGISTRY[key] = hit
+    return hit
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
             or not t.is_contiguous():
@@ -100,71 +134,140 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
             f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _launch_charge(state: dict, dom, amt, step, progs):
-    codes = kind_codes(progs)
+def _ok(t: torch.Tensor, dtype, shape, device) -> bool:
+    return (t.dtype is dtype and t.shape == shape and t.device == device
+            and t.is_contiguous())
+
+
+def charge_checks(state: dict, dom, amt) -> tuple:
+    """Device, type, shape and contiguity of every tensor the charge
+    kernel reads; ``(m, n, P)``.  Raises, naming the tensor, on what the
+    kernel does not take."""
+    dev = dom.device
     m = dom.shape[0]
     n = state["usage"].shape[0]
-    P = state["prog"].shape[1]
-    dev = dom.device
+    prog = state["prog"]
+    P = prog.shape[-1]
     if P > _MAX_PARAMS:
         raise ValueError(f"param table width {P} > {_MAX_PARAMS}")
-    _check(dom, "dom", torch.int32, (m,), dev)
-    _check(amt, "amt", torch.int32, (m,), dev)
-    for key in ("parent", "high", "max", "low", "priority", "prog_id",
-                "usage", "peak", "throttle_until", "mem_stall"):
-        _check(state[key], key, torch.int32, (n,), dev)
-    _check(state["frozen"], "frozen", torch.bool, (n,), dev)
-    _check(state["prog"], "prog", torch.float32, (n, P), dev)
-    lib = _charge_lib()
-    usage = torch.empty_like(state["usage"])
-    peak = torch.empty_like(state["peak"])
-    tu = torch.empty_like(state["throttle_until"])
-    params = torch.empty_like(state["prog"])
-    stall = torch.empty_like(state["mem_stall"])
-    granted = torch.empty(m, dtype=torch.bool, device=dev)
-    stalled = torch.empty(m, dtype=torch.bool, device=dev)
-    kinds = sum(c << (4 * i) for i, c in enumerate(codes))
-    err = lib.enforcement_charge(
-        dom.data_ptr(), amt.data_ptr(), m, int(step),
-        float(step_reciprocal(progs)), state["parent"].data_ptr(),
-        state["high"].data_ptr(), state["max"].data_ptr(),
-        state["low"].data_ptr(), state["frozen"].data_ptr(),
-        state["priority"].data_ptr(), state["prog_id"].data_ptr(),
-        state["usage"].data_ptr(), state["peak"].data_ptr(),
-        state["throttle_until"].data_ptr(), state["prog"].data_ptr(),
-        state["mem_stall"].data_ptr(), n, P, kinds, len(codes),
-        usage.data_ptr(), peak.data_ptr(), tu.data_ptr(), params.data_ptr(),
-        stall.data_ptr(), granted.data_ptr(), stalled.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    i32 = torch.int32
+    shape = (n,)
+    ok = (_ok(dom, i32, (m,), dev) and _ok(amt, i32, (m,), dev)
+          and _ok(state["frozen"], torch.bool, shape, dev)
+          and _ok(prog, torch.float32, (n, P), dev))
+    for key in _INT_COLUMNS:
+        ok = ok and _ok(state[key], i32, shape, dev)
+    if not ok:
+        _check(dom, "dom", i32, (m,), dev)
+        _check(amt, "amt", i32, (m,), dev)
+        for key in _INT_COLUMNS:
+            _check(state[key], key, i32, shape, dev)
+        _check(state["frozen"], "frozen", torch.bool, shape, dev)
+        _check(prog, "prog", torch.float32, (n, P), dev)
+    return m, n, P
+
+
+def charge_outputs(m: int, n: int, P: int, dev) -> tuple:
+    """One allocation of int32 words, carved as
+    ``csrc/enforcement.cu::enforcement_charge`` lays it out: usage,
+    peak, throttle_until, mem_stall (n each), prog (n P, f32), granted
+    and stalled (m bytes each, a uint8 region viewed as bool), then the
+    chunk scratch (16 m bytes from the next 16-byte boundary).  Returns
+    ``(buffer, usage, peak, tu, stall, prog, granted, stalled)``."""
+    head = 4 * n + n * P
+    scratch = (4 * head + 2 * m + 15) // 16 * 16
+    words = (scratch + 16 * m) // 4 - head
+    buf = torch.empty(head + words, dtype=torch.int32, device=dev)
+    usage, peak, tu, stall, prog, rest = torch.split_with_sizes(
+        buf, (n, n, n, n, n * P, words))
+    flags = rest.view(torch.bool)
+    return (buf, usage, peak, tu, stall,
+            prog.view(torch.float32).view(n, P), flags[:m], flags[m:2 * m])
+
+
+def charge_call(state: dict, dom, amt, step, consts, m, n, P, buf) -> None:
+    """The ctypes call that launches the charge kernel into ``buf``."""
+    kinds, n_kinds, inv_step, _ = consts
+    err = _charge_lib().enforcement_charge(
+        dom.data_ptr(), amt.data_ptr(), m, int(step), inv_step,
+        state["parent"].data_ptr(), state["high"].data_ptr(),
+        state["max"].data_ptr(), state["low"].data_ptr(),
+        state["frozen"].data_ptr(), state["priority"].data_ptr(),
+        state["prog_id"].data_ptr(), state["usage"].data_ptr(),
+        state["peak"].data_ptr(), state["throttle_until"].data_ptr(),
+        state["prog"].data_ptr(), state["mem_stall"].data_ptr(), n, P,
+        kinds, n_kinds, buf.data_ptr(), _stream(dom.device))
     _build.check(err, "enforcement_charge")
+
+
+def _launch_charge(state: dict, dom, amt, step, progs):
+    consts = registry_constants(progs)
+    m, n, P = charge_checks(state, dom, amt)
+    buf, usage, peak, tu, stall, params, granted, stalled = charge_outputs(
+        m, n, P, dom.device)
+    charge_call(state, dom, amt, step, consts, m, n, P, buf)
     fused_charge_batch.launches += 1
     new_state = dict(state, usage=usage, peak=peak, throttle_until=tu,
                      prog=params, mem_stall=stall)
     return new_state, granted, stalled
 
 
-def _launch_gate(state: dict, slot_dom, step, progs):
-    kind_codes(progs)
-    for p in progs:
-        if type(p).on_gate is not PolicyProgram.on_gate:
-            raise NotImplementedError(
-                f"{type(p).__name__}.on_gate has no CUDA form")
+def gate_checks(state: dict, slot_dom) -> tuple:
+    """The gate kernel's tensors, as ``charge_checks``; ``(m, n)``."""
+    dev = slot_dom.device
     m = slot_dom.shape[0]
     n = state["usage"].shape[0]
-    dev = slot_dom.device
-    _check(slot_dom, "slot_dom", torch.int32, (m,), dev)
-    for key in ("parent", "throttle_until"):
-        _check(state[key], key, torch.int32, (n,), dev)
-    _check(state["frozen"], "frozen", torch.bool, (n,), dev)
-    lib = _gate_lib()
-    out = torch.empty(m, dtype=torch.bool, device=dev)
-    err = lib.enforcement_gate(
-        slot_dom.data_ptr(), m, int(step), state["parent"].data_ptr(),
-        state["frozen"].data_ptr(), state["throttle_until"].data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "enforcement_gate")
+    i32 = torch.int32
+    shape = (n,)
+    if not (_ok(slot_dom, i32, (m,), dev)
+            and _ok(state["parent"], i32, shape, dev)
+            and _ok(state["throttle_until"], i32, shape, dev)
+            and _ok(state["frozen"], torch.bool, shape, dev)):
+        _check(slot_dom, "slot_dom", i32, (m,), dev)
+        for key in ("parent", "throttle_until"):
+            _check(state[key], key, i32, shape, dev)
+        _check(state["frozen"], "frozen", torch.bool, shape, dev)
+    return m, n
+
+
+def _launch_gate(state: dict, slot_dom, step, progs):
+    if not registry_constants(progs)[3]:
+        bad = [type(p).__name__ for p in progs
+               if type(p).on_gate is not PolicyProgram.on_gate]
+        raise NotImplementedError(f"{bad[0]}.on_gate has no CUDA form")
+    m, _ = gate_checks(state, slot_dom)
+    out = torch.empty(m, dtype=torch.bool, device=slot_dom.device)
+    gate_call(state, slot_dom, step, m, out)
     fused_slot_gate.launches += 1
     return out
+
+
+def gate_call(state: dict, slot_dom, step, m, out) -> None:
+    """The ctypes call that launches the gate kernel into ``out``."""
+    err = _gate_lib().enforcement_gate(
+        slot_dom.data_ptr(), m, int(step), state["parent"].data_ptr(),
+        state["frozen"].data_ptr(), state["throttle_until"].data_ptr(),
+        out.data_ptr(), _stream(slot_dom.device))
+    _build.check(err, "enforcement_gate")
+
+
+def empty_launch(dev) -> None:
+    """Launch ``csrc/enforcement.cu``'s empty kernel through the same
+    ctypes path: the launch floor the two kernels are measured against.
+    Counts nowhere."""
+    lib = _build.load("enforcement")
+    fn = lib.enforcement_empty
+    if fn.argtypes is None:
+        fn.argtypes = [_P]
+        fn.restype = _I
+    _build.check(fn(_stream(dev)), "enforcement_empty")
+
+
+def _stream(dev) -> int:
+    """The handle of the current CUDA stream on ``dev``: what
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives, without
+    building a ``Stream`` object (~3 µs a call on the card's host)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def _charge_lib():
@@ -173,7 +276,7 @@ def _charge_lib():
     if fn.argtypes is None:
         fn.argtypes = ([_P, _P, _I, ctypes.c_int32, ctypes.c_float]
                        + [_P] * 12 + [_I, _I, ctypes.c_ulonglong, _I]
-                       + [_P] * 7 + [_P])
+                       + [_P, _P])
         fn.restype = _I
     return lib
 

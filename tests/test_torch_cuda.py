@@ -3,7 +3,9 @@ card, over every head width and query-group size the decode and flash
 kernels take, the decode kernel's edge lengths and its one launch a
 call, the paged decode's page sizes and unequal k/v widths, the
 SSD scan's chunk, state and head widths, and every stock enforcement
-program.  Marked ``cuda``: without a
+program over random tables and the engine-shaped ones of
+``kernels/enforcement_bench.py`` up to n 20,008.  Marked ``cuda``:
+without a
 card these tests skip.  On the card (no JAX there, so skip the JAX
 conftest):
 
@@ -18,6 +20,7 @@ from repro_torch.core import progs as P
 from repro_torch.core import sched as S
 from repro_torch.kernels import decode_attention as A
 from repro_torch.kernels import enforcement as K
+from repro_torch.kernels import enforcement_bench as EB
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import ref as R
@@ -185,6 +188,119 @@ def test_enforcement_kernels_bit_exact(dev, kind):
         assert torch.equal(K.fused_slot_gate(got[0], dom, step + 1, progs),
                            C._plain_slot_gate(got[0], dom, step + 1, progs))
         st = got[0]
+
+
+ENGINE_OPTIONS = {
+    "negative_dup": dict(negative=True, dup=True, peak_below=True,
+                         prog_oob=True),
+    "ancestor": dict(ancestor=True, peak_below=True),
+    "empty": dict(),
+}
+
+
+def _same_charge(got, want) -> bool:
+    return (EB.same_tables(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[2], want[2]))
+
+
+@pytest.mark.parametrize("option", list(ENGINE_OPTIONS))
+@pytest.mark.parametrize("kind", ["graduated", "token_bucket",
+                                  "weighted_fair", "mixed"])
+@pytest.mark.parametrize("slots", [8, 256, 1024])
+def test_enforcement_kernels_engine_shaped(dev, slots, kind, option):
+    """The bench's tables (n = 4 slots + 8: 40, 1,032, 4,104; the last
+    past what a whole-table staging fits in shared memory) with negative
+    amounts, duplicates, peaks under usage, program ids out of range,
+    the in-batch ancestor throttle and m = 0: the charge and then the
+    gate bit-exact."""
+    progs = EB.registries()[kind]
+    st, dom, amt, step = EB.engine_case(slots, progs, slots + len(kind),
+                                        dev, **ENGINE_OPTIONS[option])
+    if option == "empty":
+        dom, amt = dom[:0], amt[:0]
+    got = K.fused_charge_batch(st, dom, amt, step, progs)
+    want = C._plain_charge_batch(st, dom, amt, step, progs)
+    torch.cuda.synchronize()
+    assert _same_charge(got, want)
+    if option == "ancestor":
+        assert bool(want[1][0]) and not bool(want[1][1])
+    assert torch.equal(K.fused_slot_gate(got[0], dom, step + 1, progs),
+                       C._plain_slot_gate(got[0], dom, step + 1, progs))
+
+
+@pytest.mark.parametrize("slots,m", [(2048, 8), (5000, 600), (2, 257)])
+def test_charge_takes_any_table_size(dev, slots, m):
+    """Tables copied by several CTAs (n 8,200 and 20,008) and batches
+    over one chunk of 256 slots (600, ragged; 257 on a 16-domain table,
+    every domain charged many times)."""
+    progs = EB.registries()["mixed"]
+    st, dom, amt, step = EB.engine_case(slots, progs, m, dev, negative=True,
+                                        dup=True)
+    g = torch.Generator(device=dev).manual_seed(m)
+    pick = torch.randint(0, dom.shape[0], (m,), generator=g, device=dev)
+    dom, amt = dom[pick].contiguous(), amt[pick].contiguous()
+    got = K.fused_charge_batch(st, dom, amt, step, progs)
+    want = C._plain_charge_batch(st, dom, amt, step, progs)
+    torch.cuda.synchronize()
+    assert _same_charge(got, want)
+
+
+def _graph_nodes(call) -> list:
+    """The node types of a CUDA graph that captures one ``call()``: each
+    kernel the call launches is a kernel node (type 0), a fill or a copy
+    another type.  (The profiler's trace came back with no event now and
+    then for these ~3-8 µs kernels in whole-file runs on the card, so it
+    cannot count them.)"""
+    import ctypes
+
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        call()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    return types
+
+
+def test_charge_is_one_kernel_and_one_allocation(dev):
+    """A charge launches one kernel (the nodes of a CUDA graph capturing
+    it) and allocates one buffer; a gate one kernel and its output."""
+    progs = EB.registries()["graduated"]
+    st, dom, amt, step = EB.engine_case(8, progs, 0, dev)
+    calls = {"charge": lambda: K.fused_charge_batch(st, dom, amt, step,
+                                                    progs),
+             "gate": lambda: K.fused_slot_gate(st, dom, step, progs)}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        call()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        assert after - before == 1, name
+        assert _graph_nodes(call) == [0], name
+
+
+def test_enforcement_refuses_what_it_cannot_take(dev):
+    progs = EB.registries()["graduated"]
+    st, dom, amt, step = EB.engine_case(8, progs, 0, dev)
+    with pytest.raises(ValueError, match="amt"):
+        K.fused_charge_batch(st, dom, amt.long(), step, progs)
+    with pytest.raises(ValueError, match="usage"):
+        K.fused_charge_batch(dict(st, usage=st["usage"].cpu()), dom, amt,
+                             step, progs)
+    with pytest.raises(ValueError, match="throttle_until"):
+        K.fused_slot_gate(dict(st, throttle_until=st["throttle_until"][:5]),
+                          dom, step, progs)
 
 
 def test_custom_program_raises_on_cuda(dev):
