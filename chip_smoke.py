@@ -51,8 +51,9 @@ Phases, one JSON line each on standard output:
                  ``torch.profiler``.
   engine_parity  the reduced f32 llama3.2-3b on the CPU and on the card:
                  decode logits within 1e-4, and the engine's ``report()``
-                 identical in inkernel and userspace modes and under the
-                 weighted step scheduler.
+                 identical in inkernel and userspace modes, under the
+                 weighted step scheduler, and with the adaptive retuner
+                 acting (its retune actions identical too).
   engine_full    the full-width llama3.2-3b (28 layers, bf16, random
                  weights from a seeded generator on the card) serving 8
                  agent sessions of 2 tenants in inkernel mode; every step
@@ -60,6 +61,22 @@ Phases, one JSON line each on standard output:
                  report must equal the same sessions' report on the CPU at
                  reduced width (the control trajectory follows session
                  phases, not token values).
+  conformance    the conformance kit's standard scenarios on the device
+                 table on the card (``memcg_events`` skipped by the kind's
+                 features), each observation stream against the port's
+                 host tree, at the kit's 16 domains and at 4,104; the
+                 charge launches equal the scenarios' charge ops.
+  replay         the paper's replay drivers through the port's host tree
+                 (Fig 8, Table 2's baselines, escalation waste, adaptive
+                 soft limits; host-side, no card): their dicts, times and
+                 the qualitative outcomes the reference tests assert.
+  serve_full     ``repro_torch.launch.serve`` at full width (llama3.2-3b,
+                 bf16, random weights from a seeded generator on the card)
+                 over 8 trace-derived sessions in inkernel mode: the report
+                 equal to the same sessions' at reduced width on the CPU,
+                 at least one freeze and one throttle trigger, no
+                 overshoot, the launches the steps imply; step p50/p95 and
+                 tokens/s.
   train_parity   the reduced f32 llama3.2-3b (two layers, ``remat="dots"``)
                  trained 3 steps on the card through the flash kernels and
                  3 steps on the CPU through their plain versions, from the
@@ -910,7 +927,27 @@ def engine_parity(dev, seed: int) -> dict:
         if rc != rg:
             raise AssertionError(f"{mode} reports differ:\n{rc}\n{rg}")
         reports[mode] = rg
-    return {"logits_max_abs_err": logit_err, "reports": reports}
+    # the closed-loop retuner acting on the live engine (the settings of
+    # the JAX package's engine test): the same report and the same
+    # retune actions on the CPU and on the card
+    from repro_torch.core.adaptive import AdaptiveConfig
+    ecfg = E.EngineConfig(**common, mode="inkernel", use_freeze=True,
+                          adaptive=AdaptiveConfig(
+                              high_frac=0.01, low_frac=0.0, cooldown_ms=50.0,
+                              watch=("/t/lo1", "/t/lo2")))
+    runs = [run_engine(E, cfg, p, parity_sessions(S, D), ecfg, d)
+            for p, d in ((params, "cpu"), (gparams, dev))]
+    acts = [[(e.render(), e.t_ms) for e in r._adaptive.events]
+            for r in runs]
+    rc, rg = (r.report() for r in runs)
+    if rc != rg or acts[0] != acts[1]:
+        raise AssertionError(f"adaptive runs differ:\n{rc}\n{rg}\n"
+                             f"{acts[0]}\n{acts[1]}")
+    if not any(a.startswith("[agentcgroup] PRESSURE") for a, _ in acts[1]):
+        raise AssertionError("the adaptive retuner never acted")
+    reports["inkernel_adaptive"] = rg
+    return {"logits_max_abs_err": logit_err, "reports": reports,
+            "adaptive_actions": len(acts[1])}
 
 
 def engine_full(dev, seed: int) -> dict:
@@ -1397,6 +1434,174 @@ def _profile(step, steps: int, named=()) -> dict:
                               if any(f"::{n}(" in e.key for n in named)]}
 
 
+# ------------------------------------------------ control plane, replay
+
+
+CONFORMANCE_SIZES = (None, 4104)   # the kit's own size; the bench's beyond
+
+
+def conformance(dev, seed: int) -> dict:
+    """The port's conformance suite on the ``device`` kind with the table
+    on the card, against the port's host tree, at the scenarios' size
+    and at 4,104 domains; every charge op reaches the fused charge."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.testing import conformance as K
+
+    feats = K.backend_features("device")
+    run = [s for s in K.STANDARD_SCENARIOS if s.requires <= feats]
+    charges = sum(1 for s in run for op in s.ops if op[0] == "charge")
+    suite = K.ConformanceSuite()
+    out = {"scenarios": len(K.STANDARD_SCENARIOS), "run": len(run),
+           "charge_ops": charges, "sizes": {}}
+    for n in CONFORMANCE_SIZES:
+        factory = K.standard_backend_factory("device", device=dev,
+                                             n_domains=n)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        report = suite.run(factory, features=feats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+        if not report.ok:
+            raise AssertionError(report.summary())
+        skipped = [r.name for r in report.results if r.skipped]
+        if skipped != ["memcg_events"]:
+            raise AssertionError(f"skipped {skipped}")
+        want = {k: 0 for k in counts}
+        want["fused_charge_batch"] = charges
+        if counts != want:
+            raise AssertionError(f"n_domains {n}: launches {counts}, "
+                                 f"expected {want}")
+        out["sizes"][str(n or run[0].n_domains)] = {
+            "passed": sum(1 for r in report.results
+                          if r.ok and not r.skipped),
+            "skipped": skipped, "launches": counts, "wall_s": wall}
+    return out
+
+
+def replay_drivers(seed: int) -> dict:
+    """The paper's four replay drivers as modules of the port, through
+    its host tree, with the outcomes the reference tests assert."""
+    import contextlib
+    import io
+
+    from repro_torch.traces import (adaptive_pressure, escalation_waste,
+                                    fig8_replay, replay_traces)
+
+    out, times = {}, {}
+    for name, fn in (("fig8", fig8_replay.run),
+                     ("table2", replay_traces.main),
+                     ("escalation_waste", escalation_waste.run),
+                     ("adaptive_pressure", adaptive_pressure.run)):
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out[name] = fn()             # each driver asserts its own claims
+        times[name] = time.perf_counter() - t
+    f8 = out["fig8"]
+    tight, mod = f8["tight"], f8["moderate"]
+    checks = {
+        "fig8 tight: agent survives, the baseline OOMs":
+            tight["survival_agent"] == 1.0 and tight["survival_base"] < 1.0,
+        "fig8 tight: the agent throttles": tight["throttle_triggers"] > 0,
+        "fig8 moderate: HIGH P95 down >= 10 %, P50 within 1 ms":
+            mod["high_p95_agent_ms"] < 0.9 * mod["high_p95_base_ms"]
+            and abs(mod["high_p50_agent_ms"] - mod["high_p50_base_ms"]) < 1,
+        "table2: only agentcgroup keeps every task":
+            [r["policy"] for r in out["table2"] if r["survival"] == 1.0]
+            == ["agentcgroup"],
+        "escalation: recovers the calls the static limit kills":
+            out["escalation_waste"]["survival_escalating"] == 1.0
+            > out["escalation_waste"]["survival_static"]
+            and out["escalation_waste"]["recovered_calls"]
+            == out["escalation_waste"]["killed_calls"] > 0,
+        "adaptive: fewer throttles, survival kept":
+            out["adaptive_pressure"]["throttle_frac_adaptive"]
+            < out["adaptive_pressure"]["throttle_frac_static"]
+            and out["adaptive_pressure"]["adaptive"]["survival"]
+            >= out["adaptive_pressure"]["static"]["survival"],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"replay outcomes: {failed}\n{out}")
+    return {"device": "none: host-side replay through the port's host "
+                      "tree, no card", "results": out, "seconds": times,
+            "checks": list(checks)}
+
+
+SERVE_FULL = ["--arch", "llama3.2-3b", "--mode", "inkernel",
+              "--sessions", "8", "--slots", "8", "--s-max", "2048",
+              "--page-tokens", "16", "--pool-pages", "64",
+              "--session-high", '{"s1": 8, "s3": 8, "s5": 8, "s7": 8}']
+
+
+def serve_full(dev, seed: int) -> dict:
+    """``repro_torch.launch.serve`` at full width on the card, checked
+    against the same sessions at reduced width on the CPU; the gate is
+    read on the live table after each step (as engine_full does)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as SV
+
+    args = SV.parser().parse_args(SERVE_FULL + ["--seed", str(seed)])
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref = SV.run(SV.parser().parse_args(
+            SERVE_FULL + ["--seed", str(seed), "--reduced", "--device",
+                          "cpu"]))
+    gated = [0]
+
+    def check_gate(eng):
+        view = eng.cg.device_view()
+        dom = [eng.sessions[sid].dom_idx if sid is not None else -1
+               for sid in eng.slot_session]
+        gate = view.gate(view.state, torch.tensor(dom, dtype=torch.int32,
+                                                  device=dev),
+                         eng.step_no).cpu().tolist()
+        gated[0] += sum(1 for x in gate if not x)
+        if gate != _host_gate(eng.cg.snapshot(), dom, eng.step_no):
+            raise AssertionError(f"gate disagrees with the table at step "
+                                 f"{eng.step_no}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng, timing = SV.serve(args, after_step=check_gate)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = eng.step_no
+    report = eng.report()
+    if not eng.done():
+        raise AssertionError(f"serve did not finish in {steps} steps")
+    want = {k: 0 for k in counts}
+    want.update(fused_charge_batch=steps, fused_slot_gate=steps,
+                decode_attention=eng.cfg.n_layers * steps)
+    if counts != want:
+        raise AssertionError(f"launches {counts}, expected {want}")
+    if report != ref:
+        raise AssertionError(f"full-width report differs from the reduced "
+                             f"CPU run:\n{report}\n{ref}")
+    if report["completed"] != args.sessions or report["freezes"] < 1 \
+            or report["throttle_triggers"] < 1 or report["overshoot_pages"]:
+        raise AssertionError(f"enforcement did not act as planned: {report}")
+    if eng.cfg.d_model != 3072 or eng.cfg.n_layers != 28:
+        raise AssertionError("serve_full did not run the full width")
+    vocab = eng.cfg.padded_vocab
+    if not all(0 <= x < vocab for s in eng.sessions.values()
+               for x in s.out_tokens):
+        raise AssertionError("sampled token out of the vocabulary")
+    return {"args": SERVE_FULL, "steps": steps, "wall_s": wall,
+            "step_ms_p50": timing["step_ms_p50"],
+            "step_ms_p95": timing["step_ms_p95"],
+            "tokens": timing["tokens"],
+            "tokens_per_s": timing["tokens_per_s"],
+            "gated_slot_steps": gated[0], "launches": counts,
+            "report": report,
+            "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
 def _host_gate(snap: dict, dom: list, step: int) -> list:
     """The stock programs' gate from the snapshot: no frozen or
     throttled ancestor within the 4-deep chain."""
@@ -1419,15 +1624,17 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernels,engine_parity,engine_full,train_parity,"
-                            "train_full,prefill_parity,prefill_full",
+                    default="kernels,engine_parity,engine_full,conformance,"
+                            "replay,serve_full,train_parity,train_full,"
+                            "prefill_parity,prefill_full",
                     help="comma-separated phases to run, of kernels, "
-                         "engine_parity, engine_full, train_parity, "
-                         "train_full, prefill_parity, prefill_full, and "
-                         "profile, train_profile and prefill_profile (not "
-                         "in the default run); the result line is printed "
-                         "only when kernels, engine_full, train_full and "
-                         "prefill_full ran")
+                         "engine_parity, engine_full, conformance, replay, "
+                         "serve_full, train_parity, train_full, "
+                         "prefill_parity, prefill_full, and profile, "
+                         "train_profile and prefill_profile (not in the "
+                         "default run); the result line is printed only "
+                         "when kernels, engine_full, conformance, "
+                         "serve_full, train_full and prefill_full ran")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -1514,6 +1721,16 @@ def main() -> None:
     if "engine_full" in phases:
         full = engine_full(dev, args.seed)
         emit({"phase": "engine_full", "card": card, **full})
+    conf = None
+    if "conformance" in phases:
+        conf = conformance(dev, args.seed)
+        emit({"phase": "conformance", "card": card, **conf})
+    if "replay" in phases:
+        emit({"phase": "replay", **replay_drivers(args.seed)})
+    served = None
+    if "serve_full" in phases:
+        served = serve_full(dev, args.seed)
+        emit({"phase": "serve_full", "card": card, **served})
     if "train_parity" in phases:
         emit({"phase": "train_parity", "card": card,
               **train_parity(dev, args.seed)})
@@ -1537,10 +1754,16 @@ def main() -> None:
     if "prefill_profile" in phases:
         emit({"phase": "prefill_profile", "card": card,
               **prefill_profile(dev, args.seed)})
-    if rows is None or full is None or train is None or prefill is None:
+    if rows is None or full is None or train is None or prefill is None \
+            or conf is None or served is None:
         return
     launches = dict(full["launches"], **train["launches"],
                     ssd_scan=prefill["launches_per_prefill"]["ssd_scan"])
+    # each path's own launches, its counts set to 0 just before it
+    by_path = {"engine_full": full["launches"],
+               "serve_full": served["launches"],
+               **{f"conformance_n{n}": c["launches"]
+                  for n, c in conf["sizes"].items()}}
     # the forward's errors include those at the prefill shape
     fwd = rows["flash_fwd"]
     for e in prefill["flash_fwd_prefill_errs"].values():
@@ -1559,6 +1782,10 @@ def main() -> None:
                          if "norm_rel_err" in r else {}),
                       **({"kernel_ms": r["kernel_ms"]}
                          if "kernel_ms" in r else {}),
+                      **({"launches_by_path": {
+                          p: c[name] for p, c in by_path.items()}}
+                         if name in full["launches"] and any(
+                             c[name] for c in by_path.values()) else {}),
                       **r.get("extra", {})})
     emit({"kernels": table})
     print(card_line(), flush=True)

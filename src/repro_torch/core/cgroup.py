@@ -12,10 +12,18 @@ enforcement backend,
     lease = cg.intent.declare("tool_7", Hint.HIGH, parent="/t/sess")
     ...; lease.feedback("throttled"); lease.close()    # residual moves up
 
-This slice ports the ``DeviceTableBackend`` (torch state on a CUDA card,
-or on the CPU when the caller asks) with its ``DeviceView``, the intent
-channel and the facade.  The ``HostTreeBackend``, the sharded backend
-and the async daemon wait for later slices (ROADMAP Queue 1).
+Backends conform to the ``Backend`` protocol:
+
+  * ``HostTreeBackend`` — wraps ``domains.DomainTree``: the reference
+    semantics (trace replay, the conformance kit's golden streams), with
+    memcg-style event counters surfaced through
+    ``read(path, "memory.events")``.
+  * ``DeviceTableBackend`` — torch state on a CUDA card (or on the CPU
+    when the caller asks) with its ``DeviceView``: lifecycle host-side,
+    enforcement in-step through the fused charge and gate kernels.
+
+The sharded backend and the async daemon wait for later slices (ROADMAP
+Queue 1 items 6 and 4).
 """
 from __future__ import annotations
 
@@ -32,7 +40,10 @@ from repro_torch.core import pressure as P
 from repro_torch.core import sched as S
 from repro_torch.core.events import Ev, EventLog, OomEvent
 from repro_torch.core.intent import Feedback, Hint, hint_to_high, make_feedback
-from repro_torch.core.progs import PolicyProgram, path_in_scope
+from repro_torch.core.progs import (ChainView, PolicyProgram, Request,
+                                    as_program, as_programs, charge_decision,
+                                    check_registry, pad_row, path_in_scope,
+                                    registry_unknown_params, registry_width)
 
 UNLIMITED = D.UNLIMITED
 
@@ -121,6 +132,394 @@ class Backend(Protocol):
     def write(self, path: str, file: str, value) -> None: ...
     def snapshot(self) -> dict: ...
     def set_time(self, t: float) -> None: ...
+
+
+# --------------------------------------------------------------------- host
+
+
+class HostTreeBackend:
+    """Reference backend: the pure-Python ``DomainTree`` data model, with
+    every charge *decision* dispatched into the attached
+    ``PolicyProgram`` through the same ``charge_decision`` the device
+    table runs — one decision path for trace replay, the conformance
+    kit and the serving engine.
+
+    The decision runs eagerly on small CPU tensors built from the tree
+    for each charge.  This backend holds no device state and is the
+    reference semantics the conformance kit diffs every other backend
+    against; it is not a fallback of the device table, and nothing on
+    the card's path reaches it (a dozen tiny launches a charge would
+    time the launch latency, not the tree).
+
+    Clock convention: ``try_charge(..., step=k)`` runs on the integer
+    step clock (throttle windows quantize to ``prog.step_ms`` steps,
+    matching the device table bit for bit); ``step=None`` runs on the
+    facade's millisecond clock (``set_time``) as f32, with unquantized
+    windows — what the trace-replay simulator uses.  Don't mix the two
+    on one instance.
+    """
+
+    def __init__(self, capacity: int, log: Optional[EventLog] = None,
+                 prog: Optional[PolicyProgram] = None):
+        self.tree = D.DomainTree(capacity, log)
+        self.log = self.tree.log
+        self._ids: dict[str, int] = {"/": 0}
+        self._paths: dict[int, str] = {0: "/"}
+        self._next_id = 1
+        self.progs = as_programs(prog)
+        self.scopes = ["/"]
+        self._rows: dict[str, np.ndarray] = {"/": self.prog.default_row()}
+        self._pids: dict[str, int] = {"/": 0}    # path -> registry slot
+        self.tree.root.flat_weight = 1.0
+
+    # -------------------------------------------------------------- programs
+
+    @property
+    def prog(self) -> PolicyProgram:
+        """The primary (slot 0) program — registry constants and the
+        single-program surface."""
+        return self.progs[0]
+
+    @property
+    def attach_scope(self) -> str:
+        return self.scopes[0]
+
+    def attach(self, scope: str, prog: PolicyProgram) -> None:
+        """Root attach resets the registry to this one program (every
+        domain on its default row).  A subtree attach composes: the
+        program takes a registry slot, in-scope domains move to it;
+        everything outside keeps its current program and live rows."""
+        prog = as_program(prog)
+        if scope == "/":
+            self.progs = (prog,)
+            self.scopes = ["/"]
+            self._rows = {p: prog.default_row() for p in self.tree._index}
+            self._pids = {p: 0 for p in self.tree._index}
+            return
+        if scope in self.scopes:
+            k = self.scopes.index(scope)
+            self.progs = self.progs[:k] + (prog,) + self.progs[k + 1:]
+        else:
+            k = len(self.progs)
+            self.progs = self.progs + (prog,)
+            self.scopes.append(scope)
+        check_registry(self.progs)
+        width = registry_width(self.progs)
+        for p in self.tree._index:
+            if path_in_scope(scope, p):
+                self._pids[p] = k
+                self._rows[p] = pad_row(prog.default_row(), width)
+            else:
+                self._rows[p] = pad_row(self._rows[p], width)
+
+    def update_params(self, path: str, kv: dict) -> None:
+        unknown = registry_unknown_params(self.progs, kv)
+        if unknown:
+            raise KeyError(
+                f"no registered program has param(s) {sorted(unknown)}")
+        for p in self.tree._index:
+            if path_in_scope(path, p):
+                pr = self.progs[self._pids[p]]
+                for k, v in kv.items():
+                    if k in pr.param_names:
+                        self._rows[p][pr.col(k)] = float(v)
+
+    def _recompute_flat(self) -> None:
+        """Re-flatten hierarchical weights (lifecycle rate: mkdir /
+        rmdir / cpu.weight writes), scx_flatcg style."""
+        flat = S.flat_weights_by_path(
+            {p: d.weight for p, d in self.tree._index.items()})
+        for p, d in self.tree._index.items():
+            d.flat_weight = float(flat[p])
+
+    # lifecycle
+    def mkdir(self, path: str, spec: DomainSpec) -> int:
+        self.tree.create(path, high=spec.high, max=spec.max, low=spec.low,
+                         priority=spec.priority, weight=spec.weight,
+                         cpu_max=spec.cpu_max)
+        h = self._next_id
+        self._next_id += 1
+        self._ids[path] = h
+        self._paths[h] = path
+        parent = parent_path(path)
+        # children inherit the parent's live row AND program slot
+        self._rows[path] = self._rows[parent].copy()
+        self._pids[path] = self._pids[parent]
+        self._recompute_flat()
+        return h
+
+    def rmdir(self, path: str, transfer_residual: bool) -> int:
+        residual = self.tree.get(path).usage
+        parent = parent_path(path)
+        self.tree.remove(path)           # uncharges residual from the chain
+        if transfer_residual and residual and parent is not None:
+            self.charge_unchecked(parent, residual)
+        self._paths.pop(self._ids.pop(path), None)
+        self._rows.pop(path, None)
+        self._pids.pop(path, None)
+        self._recompute_flat()
+        return residual
+
+    def exists(self, path: str) -> bool:
+        return self.tree.exists(path)
+
+    def paths(self) -> list[str]:
+        return list(self.tree._index)
+
+    def handle(self, path: str) -> int:
+        return self._ids[path]
+
+    def path_of(self, handle: int) -> str:
+        return self._paths[handle]
+
+    # charging
+    def try_charge(self, path: str, pages: int,
+                   step: Optional[int]) -> ChargeTicket:
+        d = self.tree.get(path)
+        step_mode = step is not None
+        clock = step if step_mode else self.tree.now_ms
+        chain = list(d.ancestors())
+
+        def i32(values):
+            return torch.tensor(values, dtype=torch.int32)
+
+        view = ChainView(
+            valid=torch.ones((len(chain),), dtype=torch.bool),
+            usage=i32([a.usage for a in chain]),
+            high=i32([a.high for a in chain]),
+            max=i32([a.max for a in chain]),
+            low=i32([a.low for a in chain]),
+            frozen=torch.tensor([a.frozen or a.killed for a in chain]),
+            throttle_until=torch.tensor([a.throttle_until for a in chain],
+                                        dtype=torch.float32),
+            priority=i32(d.priority),
+            params=torch.from_numpy(
+                np.asarray(self._rows[path], np.float32)),
+            prog_id=i32(self._pids[path]),
+        )
+        req = Request(i32(self._ids[path] % (1 << 30)), i32(pages),
+                      i32(clock) if step_mode
+                      else torch.tensor(clock, dtype=torch.float32))
+        verdict, delay_ms, throttle = charge_decision(self.progs, view, req)
+        self._rows[path] = verdict.params.numpy().copy()
+        # PSI accounting — the event formula charge_batch applies on the
+        # device: a stalled or throttled decision stalls the domain
+        # (saturating at INT32_MAX like the tensor counters)
+        if bool(verdict.stall) or bool(throttle):
+            d.mem_stall = min(d.mem_stall + 1, P.INT32_MAX)
+
+        # ``delay_ms`` on the ticket = the throttle window now pending on
+        # the charged domain, in ms — the device table's convention
+        # (quantized on the step clock, exact on the ms clock)
+        def window() -> float:
+            w = max(0.0, d.throttle_until - clock)
+            return w * self.prog.step_ms if step_mode else w
+
+        if not bool(verdict.grant):
+            if d.frozen or d.killed:
+                return ChargeTicket(False, True, blocked_by=path,
+                                    delay_ms=window())
+            blk = self.tree.blocking_ancestor(d, pages)
+            if blk is not None:           # hard-max denial: memcg counters
+                self.tree.note_max_breach(blk, pages)
+                return ChargeTicket(False, True, blocked_by=blk.name,
+                                    delay_ms=window())
+            # active throttle window or program admission (token bucket)
+            return ChargeTicket(False, True, blocked_by=path,
+                                delay_ms=window())
+
+        over = self.tree.commit_charge(d, pages)
+        dly_ms = float(delay_ms)
+        if bool(throttle) and dly_ms > 0:
+            if step_mode:                 # quantized, like the device table
+                deadline = clock + int(np.ceil(
+                    np.float32(dly_ms) / np.float32(self.prog.step_ms)))
+            else:
+                deadline = clock + dly_ms
+            d.throttle_until = max(d.throttle_until, deadline)
+            d.n_throttle += 1
+            self.log.emit(self.tree.now_ms, Ev.THROTTLE, path,
+                          delay_ms=dly_ms)
+        return ChargeTicket(True, False, over_high=over,
+                            delay_ms=window())
+
+    def uncharge(self, path: str, pages: int) -> None:
+        self.tree.uncharge(path, pages)
+
+    def charge_unchecked(self, path: str, pages: int) -> None:
+        """Bookkeeping charge for lifecycle moves (residual transfer,
+        thaw re-charge): the pages are already resident, never denied."""
+        for a in self.tree.get(path).ancestors():
+            a.usage = max(0, a.usage + pages)
+            a.peak = max(a.peak, a.usage)
+
+    # scheduling (the sched_ext half)
+    def schedule(self, paths: list, costs: list, step: int,
+                 budget: int) -> list:
+        """One weighted scheduling round over the given slots — the same
+        ``schedule_decision`` the device table runs, on a state view
+        assembled from the tree."""
+        order = list(self.tree._index)
+        row = {p: i for i, p in enumerate(order)}
+        doms = [self.tree.get(p) for p in order]
+
+        def col(values, dtype):
+            return torch.tensor(values, dtype=dtype)
+
+        i32, f32 = torch.int32, torch.float32
+        state = {
+            "usage": col([d.usage for d in doms], i32),
+            "high": col([d.high for d in doms], i32),
+            "max": col([d.max for d in doms], i32),
+            "low": col([d.low for d in doms], i32),
+            "parent": col([row.get(parent_path(p), -1) if p != "/" else -1
+                           for p in order], i32),
+            "priority": col([d.priority for d in doms], i32),
+            "frozen": col([d.frozen or d.killed for d in doms], torch.bool),
+            "active": torch.ones((len(order),), dtype=torch.bool),
+            "throttle_until": col([d.throttle_until for d in doms], f32),
+            "prog": torch.from_numpy(np.stack(
+                [np.asarray(self._rows[p], np.float32) for p in order])),
+            "weight": col([d.weight for d in doms], i32),
+            "cpu_max": col([d.cpu_max for d in doms], i32),
+            "flat_weight": col([d.flat_weight for d in doms], f32),
+            "vruntime": col([d.vruntime for d in doms], f32),
+            "cpu_used": col([d.cpu_used for d in doms], i32),
+            "cpu_stamp": col([d.cpu_stamp for d in doms], i32),
+            "cpu_stall": col([d.cpu_stall for d in doms], i32),
+            "prog_id": col([self._pids[p] for p in order], i32),
+        }
+        dom = col([row[p] for p in paths], i32)
+        cost = col(list(costs), i32)
+        st, advance = S.schedule_decision(self.progs, state, dom, cost,
+                                          int(step), int(budget))
+        vr = st["vruntime"].tolist()
+        used = st["cpu_used"].tolist()
+        stamp = st["cpu_stamp"].tolist()
+        stall = st["cpu_stall"].tolist()
+        for i, d in enumerate(doms):
+            d.vruntime = float(vr[i])
+            d.cpu_used = int(used[i])
+            d.cpu_stamp = int(stamp[i])
+            d.cpu_stall = int(stall[i])
+        return [bool(a) for a in advance.tolist()]
+
+    # subtree control
+    def freeze(self, path: str) -> None:
+        self.tree.freeze(path)
+
+    def thaw(self, path: str) -> None:
+        self.tree.thaw(path)
+
+    def kill(self, path: str) -> int:
+        return self.tree.kill(path)
+
+    # control files
+    _FILE_ATTR = {"memory.current": "usage", "memory.peak": "peak",
+                  "memory.high": "high", "memory.max": "max",
+                  "memory.low": "low", "memory.priority": "priority",
+                  "cpu.weight": "weight", "cpu.max": "cpu_max"}
+
+    def read(self, path: str, file: str):
+        d = self.tree.get(path)
+        if file in self._FILE_ATTR:
+            return getattr(d, self._FILE_ATTR[file])
+        if file == "cgroup.freeze":
+            return int(d.frozen)
+        if file == "memory.events":
+            return {"high": d.n_high_breach, "max": d.n_max_breach,
+                    "throttle": d.n_throttle, "oom_kill": d.n_oom_kill}
+        if file in P.STALL_FILES:
+            attr = "mem_stall" if file == "memory.stall" else "cpu_stall"
+            return P.subtree_counts_by_path(
+                {n.name: getattr(n, attr)
+                 for n in self.tree.subtree(path)})[path]
+        raise KeyError(file)
+
+    def write(self, path: str, file: str, value) -> None:
+        d = self.tree.get(path)
+        if file == "cgroup.freeze":
+            (self.freeze if int(value) else self.thaw)(path)
+        elif file == "cpu.weight":
+            d.weight = S.check_weight(value)
+            self._recompute_flat()
+        elif file in self._FILE_ATTR and file not in ("memory.current",
+                                                      "memory.peak"):
+            setattr(d, self._FILE_ATTR[file], int(value))
+        else:
+            raise KeyError(file)
+
+    def throttle_delay_ms(self, path: str, **kw) -> float:
+        return self.tree.throttle_delay_ms(path, **kw)
+
+    def snapshot(self) -> dict:
+        idx = self.tree._index
+        order = list(idx)
+        prow = {p: i for i, p in enumerate(order)}
+
+        def col(attr, dtype=np.int64):
+            return np.array([getattr(idx[p], attr) for p in order], dtype)
+
+        return {"paths": order, "index": prow, "usage": col("usage"),
+                "high": col("high"), "max": col("max"),
+                "parent": np.array([prow.get(parent_path(p), -1)
+                                    if p != "/" else -1 for p in order],
+                                   np.int64),
+                "active": np.ones(len(order), bool),
+                "params": np.stack([self._rows[p] for p in order]),
+                "peak": col("peak"), "low": col("low"),
+                "priority": col("priority"), "frozen": col("frozen", bool),
+                "killed": col("killed", bool),
+                "throttle_until": np.array([idx[p].throttle_until
+                                            for p in order]),
+                "weight": col("weight"), "cpu_max": col("cpu_max"),
+                "vruntime": col("vruntime", np.float32),
+                "cpu_used": col("cpu_used"), "cpu_stamp": col("cpu_stamp"),
+                "mem_stall": col("mem_stall"), "cpu_stall": col("cpu_stall"),
+                "prog_id": np.array([self._pids[p] for p in order],
+                                    np.int64),
+                "root_usage": self.tree.root.usage}
+
+    def restore(self, snap: dict) -> None:
+        """Rebuild the full control state from a ``snapshot()`` dict —
+        the crash-recovery path.  Call after ``attach`` (parameter rows
+        are restored verbatim from the snapshot, overwriting attach's
+        defaults)."""
+        idx = snap["index"]
+        zeros = np.zeros(len(snap["paths"]), bool)
+        killed = snap.get("killed", zeros)
+        frozen = snap.get("frozen", zeros)
+        for p in snap["paths"]:           # parents precede children
+            if p != "/" and not self.tree.exists(p):
+                self.mkdir(p, DomainSpec())
+            d = self.tree.root if p == "/" else self.tree.get(p)
+            i = idx[p]
+            d.high = int(snap["high"][i])
+            d.max = int(snap["max"][i])
+            d.usage = int(snap["usage"][i])
+            d.throttle_until = float(snap["throttle_until"][i])
+            d.frozen = bool(frozen[i])
+            d.killed = bool(killed[i])
+            if "peak" in snap:
+                d.peak = int(snap["peak"][i])
+                d.low = int(snap["low"][i])
+                d.priority = int(snap["priority"][i])
+            if "weight" in snap:
+                d.weight = int(snap["weight"][i])
+                d.cpu_max = int(snap["cpu_max"][i])
+                d.vruntime = float(snap["vruntime"][i])
+                d.cpu_used = int(snap["cpu_used"][i])
+                d.cpu_stamp = int(snap["cpu_stamp"][i])
+            if "mem_stall" in snap:       # older snapshots: counters stay 0
+                d.mem_stall = int(snap["mem_stall"][i])
+                d.cpu_stall = int(snap["cpu_stall"][i])
+            self._rows[p] = np.asarray(snap["params"][i]).copy()
+            pid = snap.get("prog_id")
+            self._pids[p] = int(pid[i]) if pid is not None else 0
+        self._recompute_flat()
+
+    def set_time(self, t: float) -> None:
+        self.tree.now_ms = t
 
 
 # ------------------------------------------------------------------- device
@@ -774,6 +1173,13 @@ class AgentCgroup:
     def free(self) -> int:
         return self.capacity - self.usage("/")
 
+    def throttle_delay_ms(self, path: str, **kw) -> float:
+        fn = getattr(self.backend, "throttle_delay_ms", None)
+        if fn is None:
+            raise NotImplementedError(
+                "device throttling is computed in-step; use device_view()")
+        return fn(path, **kw)
+
     def snapshot(self) -> dict:
         """Telemetry arrays for host-side daemons (one device sync).
 
@@ -786,7 +1192,7 @@ class AgentCgroup:
     def restore(self, snap: dict) -> None:
         """Rebuild backend control state from a ``snapshot()`` dict —
         crash recovery onto a freshly constructed backend of the same
-        kind (see ``DeviceTableBackend.restore``)."""
+        kind (see ``HostTreeBackend.restore``)."""
         self.backend.restore(snap)
 
     # ----------------------------------------------------------- device path
@@ -802,6 +1208,13 @@ class AgentCgroup:
         self.device_view().commit(state)
 
     # ------------------------------------------------------------------ misc
+
+    def flush(self) -> Optional[int]:
+        """Epoch boundary: apply any queued lifecycle ops (an async
+        backend returns the epoch now reflected); a no-op on the
+        synchronous backends."""
+        fn = getattr(self.backend, "flush", None)
+        return fn() if fn is not None else None
 
     @property
     def log(self) -> EventLog:

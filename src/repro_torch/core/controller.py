@@ -64,8 +64,10 @@ class ControllerConfig:
 
 def new_state(capacity_pages: int, n_domains: int = 64,
               prog: Optional[PolicyProgram] = None,
-              device="cpu") -> dict:
-    """Fresh device state with only the root (index 0) configured."""
+              device="cuda") -> dict:
+    """Fresh device state with only the root (index 0) configured, on
+    the card unless the caller asks for the CPU."""
+    device = resolve_device(device)
     progs = as_programs(prog)
     width = registry_width(progs)
     n = n_domains
@@ -266,10 +268,10 @@ class DeviceDomainTable:
 
     def __init__(self, capacity_pages: int, n_domains: int = 64,
                  cfg: ControllerConfig = ControllerConfig(),
-                 prog: Optional[PolicyProgram] = None, device="cpu"):
+                 prog: Optional[PolicyProgram] = None, device="cuda"):
         self.cfg = cfg
         self.n = n_domains
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.progs = as_programs(prog if prog is not None else cfg)
         self.scopes = ["/"] * len(self.progs)
         self.state = new_state(capacity_pages, n_domains, self.progs,

@@ -64,6 +64,26 @@ class OomEvent:
                 f"of work discarded")
 
 
+@dataclass(frozen=True)
+class PressureEvent:
+    """Typed adaptive-retune action: the closed-loop controller
+    (``core/adaptive.py``) observed sustained pressure on a domain and
+    turned a zero-retrace knob — a soft-limit bump, a parameter
+    retune, or the reverse once pressure subsided."""
+    path: str                   # domain acted on
+    file: str                   # pressure file that triggered ("memory.pressure" / "cpu.pressure")
+    avg10: float                # [0, 1] stall fraction at decision time
+    action: str                 # "bump_high" | "restore_high" | "retune" | "restore_params"
+    old: float                  # knob value before
+    new: float                  # knob value after
+    t_ms: float = 0.0
+
+    def render(self) -> str:
+        return (f"[agentcgroup] PRESSURE: {self.path} {self.file} "
+                f"avg10={self.avg10 * 100.0:.2f}% -> {self.action} "
+                f"{self.old:g} -> {self.new:g}")
+
+
 class EventLog:
     def __init__(self) -> None:
         self.events: list[Event] = []

@@ -17,7 +17,7 @@ A pure-Python copy of ``repro/core/intent.py``.
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -48,6 +48,15 @@ CATEGORY_HINT = {
     "edit": Hint.LOW,
     "subagent": Hint.HIGH,
 }
+
+
+def parse_hint(s: Optional[str]) -> Optional[Hint]:
+    if not s:
+        return None
+    try:
+        return Hint(s)
+    except ValueError:
+        return None
 
 
 def hint_to_high(hint: Optional[Hint], *, headroom: float = 1.5) -> int:
@@ -85,3 +94,36 @@ def make_feedback(tool_id: str, reason: str, peak: int, limit: int) -> Feedback:
     else:
         sug = "Session was frozen under memory pressure; it will resume."
     return Feedback(tool_id, reason, peak, limit, sug)
+
+
+def feedback_from_oom(ev) -> Feedback:
+    """Bridge a typed ``OomEvent`` (events.py) into the downward
+    feedback record the replayed agent model consumes — the semantic
+    half of the kill -> feedback -> retry loop."""
+    return make_feedback(ev.path.rsplit("/", 1)[-1], "oom_kill",
+                         ev.peak_pages, ev.limit_pages)
+
+
+@dataclass
+class AdaptiveAgentModel:
+    """How the replayed agent reacts to downward feedback.
+
+    ``scope_scale`` models strategy reconstruction: on OOM/throttle
+    feedback, the retried tool call's memory burst shrinks by this
+    factor (e.g. running half the test suite).  ``learns_hints``: after
+    one correction the agent declares the right hint for that category.
+    """
+    scope_scale: float = 0.5
+    max_retries: int = 2
+    learns_hints: bool = True
+    learned: dict = field(default_factory=dict)    # category -> Hint
+
+    def on_feedback(self, category: str, fb: Feedback) -> dict:
+        """Returns the retry adjustment for the failed tool call."""
+        if self.learns_hints and fb.reason in ("throttled", "oom"):
+            self.learned[category] = Hint.HIGH
+        return {"scale": self.scope_scale if fb.reason == "oom" else 1.0,
+                "hint": self.learned.get(category)}
+
+    def hint_for(self, category: str, declared: Optional[Hint]) -> Optional[Hint]:
+        return self.learned.get(category, declared)

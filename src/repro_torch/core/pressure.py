@@ -180,3 +180,71 @@ class PressureMeter:
         for key in [k for k in self._rows
                     if k[0] == path or k[0].startswith(path + "/")]:
             del self._rows[key]
+
+
+def parse_psi(line: str) -> dict:
+    """Parse a PSI line back into ``{"avg10": frac, "avg60": frac,
+    "total": int}`` (averages as [0, 1] fractions) — what the adaptive
+    controller consumes, reading only the public file surface."""
+    fields = dict(kv.split("=", 1) for kv in line.split()[1:])
+    return {"avg10": float(fields["avg10"]) / 100.0,
+            "avg60": float(fields["avg60"]) / 100.0,
+            "total": int(fields["total"])}
+
+
+class PressureMeter:
+    """Counter-to-average converter for the pressure control files.
+
+    One meter per facade; per (path, file) it tracks the last sampled
+    (clock, counter) pair and the two running averages.  A sample at
+    clock ``now`` converts the counter delta into a stall *fraction*
+    (events per elapsed step, clamped to [0, 1] — the PSI "some share
+    of time" analogue) and folds it into each window with the exact
+    decay ``exp(-dt / window)``.  All inputs come off the facade clock
+    and the device counters, so identical op sequences yield identical
+    strings on every backend.
+    """
+
+    def __init__(self, step_ms: float = 10.0,
+                 windows: tuple = (AVG10_MS, AVG60_MS)):
+        # ``step_ms`` is the step quantum in facade-clock units and
+        # ``windows`` the two decay windows in the same units.  A
+        # facade whose clock counts ms keeps the defaults (and tracks
+        # the attached program's step_ms — ``auto_step``); a caller
+        # whose clock counts steps (the serving engine) reconfigures
+        # via ``AgentCgroup.pressure_clock``.
+        self.step_ms = float(step_ms)
+        self.windows = (float(windows[0]), float(windows[1]))
+        self.auto_step = True
+        self._rows: dict = {}    # (path, file) -> [t, count, avg10, avg60]
+
+    def sample(self, path: str, file: str, total: int, now: float):
+        row = self._rows.get((path, file))
+        if row is None:
+            row = [float(now), int(total), 0.0, 0.0]
+            self._rows[(path, file)] = row
+            return row
+        dt = float(now) - row[0]
+        if dt <= 0.0:
+            return row
+        steps = max(dt / self.step_ms, 1.0)
+        frac = min(max(int(total) - row[1], 0) / steps, 1.0)
+        for slot, window in ((2, self.windows[0]), (3, self.windows[1])):
+            a = math.exp(-dt / window)
+            row[slot] = row[slot] * a + frac * (1.0 - a)
+        row[0], row[1] = float(now), int(total)
+        return row
+
+    def read(self, path: str, file: str, total: int, now: float) -> str:
+        row = self.sample(path, file, total, now)
+        return format_psi(row[2], row[3], total)
+
+    def avg10(self, path: str, file: str) -> float:
+        row = self._rows.get((path, file))
+        return row[2] if row is not None else 0.0
+
+    def forget(self, path: str) -> None:
+        """Drop meter rows for a removed domain (and its subtree)."""
+        for key in [k for k in self._rows
+                    if k[0] == path or k[0].startswith(path + "/")]:
+            del self._rows[key]

@@ -85,7 +85,9 @@ class Request(NamedTuple):
     """One charge attempt, as seen by a program hook."""
     dom: torch.Tensor     # charged domain handle (i32)
     amt: torch.Tensor     # pages requested (i32)
-    step: torch.Tensor    # throttle clock (i32 engine step)
+    step: torch.Tensor    # throttle clock: i32 steps on the device table
+    #                       and the step clock, f32 ms on the host tree's
+    #                       facade clock (``step=None``)
 
 
 class ChainView(NamedTuple):
@@ -99,7 +101,8 @@ class ChainView(NamedTuple):
     max: torch.Tensor              # (..., depth) i32
     low: torch.Tensor              # (..., depth) i32
     frozen: torch.Tensor           # (..., depth) bool
-    throttle_until: torch.Tensor   # (..., depth) i32, same clock as req.step
+    throttle_until: torch.Tensor   # (..., depth) i32 (device table) or
+    #                                f32 (host tree), same clock as req.step
     priority: torch.Tensor         # (...) i32 — the charged domain's
     params: torch.Tensor           # (..., P) f32 — the charged domain's row
     prog_id: torch.Tensor          # (...) i32 — registry slot of the domain

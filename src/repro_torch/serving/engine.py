@@ -15,9 +15,10 @@ charge path a decoded token uses).  The controller runs in one of:
 
 Host-side daemon work (lifecycle only, as in the paper): admission,
 per-tool-call child domains with intent-hint highs, freeze/thaw with
-state offload, downward feedback.  This slice runs the synchronous
-device-table backend; the async daemon, the sharded backend and the
-adaptive retuner raise ``NotImplementedError`` naming their ROADMAP item.
+state offload, downward feedback, and (with ``adaptive=``) the
+closed-loop pressure retuner polled at step boundaries.  The port runs
+the synchronous device-table backend; the async daemon and the sharded
+backend raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import domains as D
 from repro_torch.core import pressure as PSI
+from repro_torch.core.adaptive import AdaptiveConfig, AdaptiveController
 from repro_torch.core.cgroup import AgentCgroup, DeviceTableBackend, DomainSpec
 from repro_torch.core.controller import ControllerConfig, resolve_device
 from repro_torch.core.events import Ev, EventLog
@@ -57,6 +59,10 @@ class EngineConfig:
     mode: str = "inkernel"               # inkernel | userspace | nolimit
     backend: str = "device"              # device (async, sharded: later)
     ctrl: ControllerConfig = ControllerConfig(step_ms=10.0)
+    # 0 samples greedily, as the reference does; ``report()`` is
+    # field-identical to the JAX engine's at temperature 0 only (above
+    # 0 the port draws from a ``torch.Generator``, the reference from
+    # its PRNG key)
     temperature: float = 0.0
     # daemon knobs
     freeze_threshold: float = 0.97
@@ -72,8 +78,12 @@ class EngineConfig:
     # ``sched_slots`` weighted slots advance per step; None keeps the
     # binary slot gate
     sched_slots: Optional[int] = None
-    # closed-loop adaptive retuner (not ported yet: must stay None)
-    adaptive: Optional[object] = None
+    # closed-loop adaptive retuner over memory.pressure / cpu.pressure
+    # (core/adaptive.py): polls at step boundaries, bumps soft limits /
+    # retunes params through state writes.  None (the default) keeps
+    # behavior bit-identical — the loop never runs, no pressure file is
+    # read.
+    adaptive: Optional[AdaptiveConfig] = None
     # intent hints in engine pages (LOW/MEDIUM/HIGH priority of Hint enum)
     intent_high_pages: Optional[dict] = None
     session_high: Optional[dict] = None  # sid -> memory.high (pages)
@@ -101,10 +111,6 @@ class Engine:
             raise NotImplementedError(_NOT_PORTED[ecfg.backend])
         if ecfg.backend != "device":
             raise ValueError(f"unknown backend {ecfg.backend!r}")
-        if ecfg.adaptive is not None:
-            raise NotImplementedError(
-                "adaptive= (the closed-loop pressure retuner) is not ported "
-                "yet: ROADMAP Queue 1 item 4")
         if ecfg.mode not in ("inkernel", "userspace", "nolimit"):
             raise ValueError(f"unknown mode {ecfg.mode!r}")
         self.device = resolve_device(device)
@@ -123,6 +129,9 @@ class Engine:
             step_quantum=1.0,
             windows=(PSI.AVG10_MS / ecfg.ctrl.step_ms,
                      PSI.AVG60_MS / ecfg.ctrl.step_ms))
+        self._adaptive = (AdaptiveController(self.cg, ecfg.adaptive)
+                          if ecfg.adaptive is not None else None)
+        self._adaptive_epoch = None
         self.pool_capacity = ecfg.pool_pages
         self._view = self.cg.device_view()
         self.log = EventLog()
@@ -291,6 +300,14 @@ class Engine:
                 if (root_usage + cand.pages
                         < e.thaw_threshold * self.pool_capacity):
                     self._thaw(cand)
+        if self._adaptive is not None:
+            # closed loop: poll every step boundary (an async backend
+            # would poll once per applied epoch; the synchronous device
+            # table has none, so ``epoch`` is always None here)
+            epoch = snap.get("epoch")
+            if epoch is None or epoch != self._adaptive_epoch:
+                self._adaptive_epoch = epoch
+                self._adaptive.poll(float(self.step_no))
         self._try_admit()
 
     def _freeze(self, s: Session) -> None:

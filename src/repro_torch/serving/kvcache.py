@@ -17,6 +17,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.controller import resolve_device
 from repro_torch.core.freezer import FrozenStore
 from repro_torch.models import model as M
 
@@ -49,8 +50,9 @@ class SlotCaches:
     """Dense per-slot decode state with host offload."""
 
     def __init__(self, cfg: ModelConfig, max_slots: int, s_max: int,
-                 device="cpu"):
+                 device="cuda"):
         check_servable(cfg)
+        device = resolve_device(device)
         self.cfg = cfg
         self.max_slots = max_slots
         self.s_max = s_max

@@ -9,8 +9,7 @@ result).  Scripts can be built directly or derived from a §3 trace.
 State machine: WAITING -> RUNNING <-> (THROTTLED | FROZEN) -> DONE
                                    \-> EVICTED (last resort)
 
-Port of ``repro/serving/session.py`` (pure Python).  ``session_from_trace``
-needs the trace schema and comes with the replay slice.
+Port of ``repro/serving/session.py`` (pure Python).
 """
 from __future__ import annotations
 
@@ -20,6 +19,7 @@ from typing import Optional
 
 from repro_torch.core import domains as D
 from repro_torch.core.intent import CATEGORY_HINT, Hint
+from repro_torch.traces.schema import TaskTrace
 
 
 class SState(enum.Enum):
@@ -158,3 +158,19 @@ class Session:
         self.n_rollbacks += 1
         return max(freed, 0)
 
+
+def session_from_trace(sid: str, tenant: str, trace: TaskTrace, *,
+                       priority: int = D.NORMAL, tokens_per_mb: float = 4.0,
+                       gen_per_call: int = 24, max_phases: int = 12,
+                       prompt_tokens: int = 48) -> Session:
+    """Map a §3 trace to a serving session: each tool call becomes a
+    phase whose appended result size scales with the call's burst."""
+    phases = []
+    for c in sorted(trace.tool_calls, key=lambda c: c.t_start_s)[:max_phases]:
+        phases.append(Phase(
+            gen_tokens=gen_per_call,
+            append_tokens=max(4, int(c.peak_mb * tokens_per_mb)),
+            category=c.category))
+    return Session(sid=sid, tenant=tenant, priority=priority,
+                   prompt=[(i % 997) + 2 for i in range(prompt_tokens)],
+                   phases=phases)

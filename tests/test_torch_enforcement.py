@@ -171,7 +171,7 @@ def test_exact_quantum_delays_are_exercised():
     """The exact-boundary family really produces delays on whole step
     quanta (60 ms at step_ms 10 -> 6 steps, not 7)."""
     progs = (TP.GraduatedThrottleProgram(step_ms=10.0),)
-    st = TC.new_state(100, 4, progs)
+    st = TC.new_state(100, 4, progs, "cpu")
     st["parent"][1] = 0
     st["high"][1] = 10
     new, g, _ = TC.charge_batch(st, torch.tensor([1], dtype=torch.int32),
@@ -182,7 +182,7 @@ def test_exact_quantum_delays_are_exercised():
 
 def test_saturating_stall_counter_holds_at_int32_max():
     progs = (TP.GraduatedThrottleProgram(),)
-    st = TC.new_state(100, 4, progs)
+    st = TC.new_state(100, 4, progs, "cpu")
     st["parent"][1] = 0
     st["frozen"][1] = True
     st["mem_stall"][1] = INT32_MAX
@@ -259,7 +259,7 @@ def test_custom_program_runs_on_cpu_and_has_no_cuda_form():
                               base.delay_ms, base.params)
 
     progs = (BurstCap(),)
-    st = TC.new_state(100, 4, progs)
+    st = TC.new_state(100, 4, progs, "cpu")
     st["parent"][1] = 0
     _, g, s = TC.charge_batch(st, torch.tensor([1, 1], dtype=torch.int32),
                               torch.tensor([2, 5], dtype=torch.int32), 0,

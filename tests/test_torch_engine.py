@@ -1,22 +1,26 @@
 """The port's serving engine against the JAX engine: the sessions of
 ``tests/test_engine.py`` on the reduced f32 ``llama3.2-3b`` with the
 JAX weights carried over, in ``inkernel`` mode (with per-session
-``memory.high``), in ``userspace`` mode, and in ``inkernel`` mode under
-the weighted step scheduler (``sched_slots``).  ``Engine.report()`` follows
-session phases, not token values, and must be field-identical.  The
-JAX reports are computed once per module."""
+``memory.high``), in ``userspace`` mode, in ``nolimit`` mode, and in
+``inkernel`` mode under the weighted step scheduler (``sched_slots``);
+and sessions derived from generated traces through
+``session_from_trace``.  ``Engine.report()`` follows session phases, not
+token values, and must be field-identical.  The JAX reports are computed
+once per module."""
 import dataclasses
 
 import jax
 import numpy as np
 import pytest
 import torch
+from torch.utils._pytree import tree_leaves
 
 from repro.core import domains as JD
 from repro.core import sched as JSched
 from repro.serving import session as JS
 from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import EngineConfig as JEngineConfig
+from repro.traces import generator as JG
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.core import domains as TD
@@ -27,6 +31,7 @@ from repro_torch.models import model as TM
 from repro_torch.serving import session as TS
 from repro_torch.serving.engine import Engine as TEngine
 from repro_torch.serving.engine import EngineConfig as TEngineConfig
+from repro_torch.traces import generator as TG
 
 COMMON = dict(max_slots=4, s_max=384, pool_pages=40, page_tokens=16)
 MODES = {
@@ -36,6 +41,8 @@ MODES = {
                       use_tool_domains=False, use_intent=False,
                       session_high={"lo1": 12, "lo2": 12}),
     "inkernel_sched": dict(mode="inkernel", use_freeze=True, sched_slots=2),
+    "nolimit": dict(mode="nolimit", use_freeze=False, use_tool_domains=False,
+                    use_intent=False),
 }
 # modes whose engine runs the weighted-fair program (weighted slots only
 # exist under it: the stock program bypasses the scheduler)
@@ -60,6 +67,25 @@ def sessions(S, D):
     ]
 
 
+def trace_sessions(S, D, G):
+    """Four sessions mapped from generated traces (1 HIGH, 3 LOW), in
+    either package: tool-call bursts become phases."""
+    out = []
+    for i in range(4):
+        trace = G.generate_task(f"agent-{i}", "glm" if i % 2 else "haiku",
+                                seed=100 + i, scale=0.6)
+        out.append(S.session_from_trace(
+            f"s{i}", "t", trace, priority=D.HIGH if i == 0 else D.LOW,
+            tokens_per_mb=0.25, gen_per_call=8, max_phases=4))
+    return out
+
+
+# a pool the trace sessions overrun: throttles, freezes and thaws act
+TRACE_ENGINE = dict(max_slots=4, s_max=384, pool_pages=16, page_tokens=16,
+                    mode="inkernel", use_freeze=True,
+                    session_high={"s1": 4, "s2": 4, "s3": 4})
+
+
 @pytest.fixture(scope="module")
 def jax_reports(tiny_llama):
     cfg, params = tiny_llama
@@ -72,6 +98,11 @@ def jax_reports(tiny_llama):
             eng.submit(s)
         eng.run(6000)
         out[name] = eng.report()
+    eng = JEngine(cfg, params, ecfg=JEngineConfig(**TRACE_ENGINE), seed=0)
+    for s in trace_sessions(JS, JD, JG):
+        eng.submit(s)
+    eng.run(6000)
+    out["trace_sessions"] = eng.report()
     return out
 
 
@@ -100,6 +131,20 @@ def test_report_field_identical(jax_reports, torch_model, mode):
     assert set(launch_counts().values()) == {0}
 
 
+def test_trace_sessions_report_field_identical(jax_reports, torch_model):
+    """``session_from_trace`` sessions through the port's engine: the
+    report equals the JAX engine's on the same traces."""
+    tcfg, tparams = torch_model
+    eng = TEngine(tcfg, tparams, ecfg=TEngineConfig(**TRACE_ENGINE), seed=0,
+                  device="cpu")
+    for s in trace_sessions(TS, TD, TG):
+        eng.submit(s)
+    eng.run(6000)
+    report = eng.report()
+    assert report == jax_reports["trace_sessions"]
+    assert report["completed"] == 4 and report["throttle_triggers"] > 0
+
+
 def test_entry_points_default_to_the_card():
     """Without ``device=`` the entry points ask for CUDA; where torch sees
     no card they raise instead of quietly running on the CPU."""
@@ -113,10 +158,36 @@ def test_entry_points_default_to_the_card():
         TEngine(tcfg, {}, ecfg=TEngineConfig(**COMMON))
 
 
+@pytest.mark.parametrize("make", ["new_state", "DeviceDomainTable",
+                                  "SlotCaches"])
+def test_constructors_default_to_the_card(make):
+    """The control state, the device table and the slot caches are built
+    on the card unless the caller passes a device: without one, where
+    torch sees no card, each raises instead of running on the CPU."""
+    from repro_torch.core import controller as TC
+    from repro_torch.serving.kvcache import SlotCaches
+    tcfg = t_reduced(t_get_config("llama3.2-3b"))
+    build, tensor = {
+        "new_state": (lambda: TC.new_state(16, 4), lambda s: s["usage"]),
+        "DeviceDomainTable": (lambda: TC.DeviceDomainTable(16, 4),
+                              lambda t: t.state["usage"]),
+        "SlotCaches": (lambda: SlotCaches(tcfg, 2, 32),
+                       lambda c: tree_leaves(c.state)[0]),
+    }[make]
+    if torch.cuda.is_available():
+        assert tensor(build()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+
+
+# The adaptive retuner is ported; what stays unported under item 4 is
+# the async daemon, which is also the epoch cadence an adaptive engine
+# would poll at there.
 @pytest.mark.parametrize("kw,item", [
     (dict(backend="async"), "Queue 1 item 4"),
     (dict(backend="sharded"), "Queue 1 item 6"),
-    (dict(adaptive=object()), "Queue 1 item 4"),
+    (dict(backend="async", adaptive=object()), "Queue 1 item 4"),
 ])
 def test_unported_options_raise(kw, item):
     tcfg = t_reduced(t_get_config("llama3.2-3b"))
