@@ -19,7 +19,12 @@ Phases, one JSON line each on standard output:
                  engine-shaped ones of 40, 1,032 and 4,104 domains
                  (negative amounts, duplicates, an in-batch ancestor
                  throttle, m = 0), every stock program, timed cold by the
-                 profiler beside an empty kernel's launch floor; decode
+                 profiler beside an empty kernel's launch floor; with the
+                 shard axis, over 8 shards of 513 domains and 64 slots
+                 and of 1,032 domains and 256 slots spread by a seeded
+                 generator (the mixed registry), bit-exact against the
+                 plain per-shard loop, one launch a call, its issue pace
+                 beside the same work as 8 launches at S 1; decode
                  attention within 2e-5 (f32) and 2e-2 (bf16) and each
                  slot within 1e-2 norm-relative, at B=8,
                  H=24, Hkv=8, d=128, S_max=2048 with the short contexts
@@ -61,11 +66,16 @@ Phases, one JSON line each on standard output:
                  report must equal the same sessions' report on the CPU at
                  reduced width (the control trajectory follows session
                  phases, not token values).
-  conformance    the conformance kit's standard scenarios on the device
-                 table on the card (``memcg_events`` skipped by the kind's
-                 features), each observation stream against the port's
-                 host tree, at the kit's 16 domains and at 4,104; the
-                 charge launches equal the scenarios' charge ops.
+  conformance    the conformance kit's standard scenarios on the card's
+                 backend kinds, the device table, the sharded table at 8
+                 shards and the async daemon around each
+                 (``memcg_events`` skipped by the kinds' features), each
+                 observation stream against the port's host tree, at the
+                 kit's 16 domains (a shard) and at 4,104 (8 shards of
+                 513); then the fault-injecting factories around the same
+                 kinds with the fault-free plan and with a transient-only
+                 plan under auto-retry; in every run the charge launches
+                 equal the scenarios' charge ops.
   replay         the paper's replay drivers through the port's host tree
                  (Fig 8, Table 2's baselines, escalation waste, adaptive
                  soft limits; host-side, no card): their dicts, times and
@@ -77,6 +87,15 @@ Phases, one JSON line each on standard output:
                  at least one freeze and one throttle trigger, no
                  overshoot, the launches the steps imply; step p50/p95 and
                  tokens/s.
+  control_full   the full-width llama3.2-3b serving through the other
+                 control planes, each against the same run at reduced
+                 width on the CPU: ``backend="async"`` on serve_full's
+                 sessions (the device backend's report, lifecycle in
+                 daemon epochs), the same with the daemon poisoned after
+                 step 40 (one rebuild, everyone finishes, root usage 0),
+                 and ``backend="sharded"`` at 2 shards on engine_full's
+                 two tenants (one a device group); one charge launch a
+                 step in each; step p50/p95.
   train_parity   the reduced f32 llama3.2-3b (two layers, ``remat="dots"``)
                  trained 3 steps on the card through the flash kernels and
                  3 steps on the CPU through their plain versions, from the
@@ -119,7 +138,9 @@ beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import statistics
 import subprocess
@@ -317,6 +338,71 @@ def check_enforcement(dev, seed: int) -> dict:
                 cases += 1
     return {"cases": cases, "engine_shaped_cases": shapes,
             "charge_max_abs_err": charge_err, "gate_max_abs_err": gate_err}
+
+
+def check_shard_enforcement(dev, seed: int) -> dict:
+    """The shard axis: the charge and gate over the bench's two shard
+    shapes (``groups``: S 8 x n 513 x m 64, a node's 8 slots a group;
+    ``spread``: S 8 x n 1,032 x m 256 over shards from a seeded
+    generator; the mixed stock registry), two steps feeding forward,
+    bit-exact against the plain per-shard loop, one launch a call; then
+    the issue pace of each beside the same work as 8 launches at S 1."""
+    from repro_torch.core import controller as C
+    from repro_torch.kernels import enforcement as K
+    from repro_torch.kernels import enforcement_bench as B
+
+    keys = ("usage", "peak", "throttle_until", "prog", "mem_stall")
+    out = {}
+    for shape, spec in B.SHARD_SHAPES.items():
+        cases = 0
+        for case_seed in range(2):
+            st, dom, amt, step, progs = B.shard_case(shape, dev,
+                                                     seed * 10 + case_seed)
+            for _ in range(2):
+                before = (K.fused_charge_batch.launches,
+                          K.fused_slot_gate.launches)
+                got, gk, sk = K.fused_charge_batch(st, dom, amt, step, progs)
+                gate_k = K.fused_slot_gate(got, dom, step + 1, progs)
+                if (K.fused_charge_batch.launches - before[0],
+                        K.fused_slot_gate.launches - before[1]) != (1, 1):
+                    raise AssertionError(f"{shape}: not one launch a call")
+                want, gp, sp = C._plain_charge_shards(st, dom, amt, step,
+                                                      progs)
+                same, err = table_diff(got, want, keys)
+                if not (same and torch.equal(gk, gp)
+                        and torch.equal(sk, sp)):
+                    raise AssertionError(f"shard-axis charge differs from "
+                                         f"the plain loop ({shape}): {err}")
+                if not torch.equal(gate_k, C._plain_gate_shards(
+                        got, dom, step + 1, progs)):
+                    raise AssertionError(f"shard-axis gate differs "
+                                         f"({shape})")
+                st = dict(st, **{k: got[k] for k in keys})
+                step += 1
+                cases += 1
+        # the issue pace from CUDA events (the profiler's device times of
+        # these shapes come from enforcement_bench, in its own process)
+        st, dom, amt, step, progs = B.shard_case(shape, dev, seed)
+        slices = [({k: v[s] for k, v in st.items()}, dom[s])
+                  for s in range(dom.shape[0])]
+        calls = {
+            "charge": (lambda: K.fused_charge_batch(st, dom, amt, step,
+                                                    progs),
+                       lambda: [K.fused_charge_batch(sub, d, amt, step, progs)
+                                for sub, d in slices],
+                       B.charge_bound(st, dom)),
+            "gate": (lambda: K.fused_slot_gate(st, dom, step, progs),
+                     lambda: [K.fused_slot_gate(sub, d, step, progs)
+                              for sub, d in slices],
+                     B.gate_bound(st, dom))}
+        out[shape] = {"S": spec["shards"], "n": spec["n"],
+                      "m": spec["slots"], "cases": cases, "max_abs_err": 0.0}
+        for k, (one, loop, bound) in calls.items():
+            out[shape][k] = {"issue_ms": cuda_ms(one, spec["calls"]),
+                             "as_shard_launches_issue_ms": cuda_ms(
+                                 loop, spec["calls"]),
+                             "bound_ms": bound[0], "bound_by": bound[1]}
+    return out
 
 
 def time_enforcement(dev, seed: int) -> dict:
@@ -1438,12 +1524,21 @@ def _profile(step, steps: int, named=()) -> dict:
 
 
 CONFORMANCE_SIZES = (None, 4104)   # the kit's own size; the bench's beyond
+# the card's kinds: (kind, shards); a sharded kind's 4,104 domains are 8
+# device groups of 513 (the kernels' ``groups`` shard shape)
+CONFORMANCE_KINDS = (("device", 1), ("sharded", 8), ("async-device", 1),
+                     ("async-sharded", 8))
 
 
 def conformance(dev, seed: int) -> dict:
-    """The port's conformance suite on the ``device`` kind with the table
-    on the card, against the port's host tree, at the scenarios' size
-    and at 4,104 domains; every charge op reaches the fused charge."""
+    """The port's conformance suite on the card's backend kinds (the
+    device table, the sharded table at 8 shards, and the async daemon
+    around each), against the port's host tree, at the scenarios' size
+    and at 4,104 domains; then the fault-injecting factories around the
+    same kinds with the fault-free plan and with a transient-only plan
+    under ``auto_retry=1``.  In every run each charge op reaches the
+    fused charge once: charge launches equal charge ops."""
+    from repro_torch.core.faults import FaultPlan
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.testing import conformance as K
 
@@ -1452,10 +1547,9 @@ def conformance(dev, seed: int) -> dict:
     charges = sum(1 for s in run for op in s.ops if op[0] == "charge")
     suite = K.ConformanceSuite()
     out = {"scenarios": len(K.STANDARD_SCENARIOS), "run": len(run),
-           "charge_ops": charges, "sizes": {}}
-    for n in CONFORMANCE_SIZES:
-        factory = K.standard_backend_factory("device", device=dev,
-                                             n_domains=n)
+           "charge_ops": charges, "sizes": {}, "kinds": {}, "faulty": {}}
+
+    def certify(factory) -> dict:
         torch.cuda.synchronize()
         reset_launch_counts()
         t = time.perf_counter()
@@ -1467,25 +1561,39 @@ def conformance(dev, seed: int) -> dict:
             raise AssertionError(report.summary())
         skipped = [r.name for r in report.results if r.skipped]
         if skipped != ["memcg_events"]:
-            raise AssertionError(f"skipped {skipped}")
+            raise AssertionError(f"{factory.kind}: skipped {skipped}")
         want = {k: 0 for k in counts}
         want["fused_charge_batch"] = charges
         if counts != want:
-            raise AssertionError(f"n_domains {n}: launches {counts}, "
+            raise AssertionError(f"{factory.kind}: launches {counts}, "
                                  f"expected {want}")
-        out["sizes"][str(n or run[0].n_domains)] = {
-            "passed": sum(1 for r in report.results
-                          if r.ok and not r.skipped),
-            "skipped": skipped, "launches": counts, "wall_s": wall}
+        return {"passed": sum(1 for r in report.results
+                              if r.ok and not r.skipped),
+                "skipped": skipped, "launches": counts, "wall_s": wall}
+
+    for kind, shards in CONFORMANCE_KINDS:
+        for n in CONFORMANCE_SIZES:
+            per = n // shards if n else None
+            res = certify(K.standard_backend_factory(
+                kind, device=dev, n_domains=per, n_shards=shards))
+            size = str(n or run[0].n_domains)
+            if kind == "device":          # the earlier slices' keys
+                out["sizes"][size] = res
+            out["kinds"][f"{kind}_s{shards}_n{size}"] = res
+    plans = {"fault_free": (None, 0),
+             "transient_retry": (FaultPlan(seed=seed + 7, p_transient=0.5),
+                                 1)}
+    for kind, shards in CONFORMANCE_KINDS:
+        for name, (plan, retry) in plans.items():
+            out["faulty"][f"{kind}_s{shards}_{name}"] = certify(
+                K.faulty_backend_factory(kind, plan, auto_retry=retry,
+                                         device=dev, n_shards=shards))
     return out
 
 
 def replay_drivers(seed: int) -> dict:
     """The paper's four replay drivers as modules of the port, through
     its host tree, with the outcomes the reference tests assert."""
-    import contextlib
-    import io
-
     from repro_torch.traces import (adaptive_pressure, escalation_waste,
                                     fig8_replay, replay_traces)
 
@@ -1539,9 +1647,6 @@ def serve_full(dev, seed: int) -> dict:
     """``repro_torch.launch.serve`` at full width on the card, checked
     against the same sessions at reduced width on the CPU; the gate is
     read on the live table after each step (as engine_full does)."""
-    import contextlib
-    import io
-
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve as SV
 
@@ -1602,6 +1707,140 @@ def serve_full(dev, seed: int) -> dict:
             "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
+POISON_AFTER = 40        # steps before control_full poisons the daemon
+
+
+def _launches_as_steps(counts: dict, steps: int, layers: int,
+                       what: str) -> None:
+    """One charge launch a step (over every shard), the decode kernel a
+    layer a step, nothing else."""
+    want = {k: 0 for k in counts}
+    want.update(fused_charge_batch=steps, decode_attention=layers * steps)
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def control_full(dev, seed: int, served: dict = None) -> dict:
+    """The control planes beside the device table at full width
+    (llama3.2-3b, bf16, random weights from a seeded generator on the
+    card), each run against the same run at reduced width on the CPU:
+
+      async     ``backend="async"`` on serve_full's trace-derived
+                sessions: lifecycle ops in daemon epochs (epoch > 0); the
+                report equal to the device backend's (the reduced CPU
+                run's, and serve_full's when it ran);
+      poisoned  the same with the daemon poisoned after step 40: one
+                rebuild from the last step-boundary snapshot, full
+                survival, no overshoot, root usage 0, the report equal
+                to the reduced CPU run of the same schedule;
+      sharded   ``backend="sharded"``, 2 shards, on engine_full's
+                two-tenant sessions (``fg`` and ``bg`` each on its own
+                device group): the report equal to the reduced CPU
+                sharded run's.
+
+    Every run: one charge launch a step for all its shards, 28 decode
+    launches a step, nothing else; step p50/p95 (host clock ending in a
+    synchronize), printed and not asserted."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import domains as D
+    from repro_torch.core.daemon import AsyncDaemonBackend
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import session as S
+
+    args = SV.parser().parse_args(SERVE_FULL + ["--seed", str(seed)])
+    small = SV.parser().parse_args(SERVE_FULL + ["--seed", str(seed),
+                                                 "--reduced", "--device",
+                                                 "cpu"])
+
+    def poison(eng):
+        if eng.step_no == POISON_AFTER:
+            eng.cg.backend._wedged = True     # as the engine tests do
+
+    out = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        device_ref = SV.run(small)
+    if served is not None and served != device_ref:
+        raise AssertionError("serve_full's report differs from its reduced "
+                             "CPU run")
+    for name, hook in (("async", None), ("poisoned", poison)):
+        ref_eng, _ = SV.serve(small, after_step=hook, backend="async")
+        ref = ref_eng.report()
+        ref_eng.close()
+        if name == "async" and ref != device_ref:
+            raise AssertionError(f"reduced async run differs from the "
+                                 f"device run:\n{ref}\n{device_ref}")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        eng, timing = SV.serve(args, after_step=hook, backend="async")
+        counts = launch_counts()
+        report = eng.report()
+        be = eng.cg.backend
+        if not isinstance(be, AsyncDaemonBackend) or be.epoch <= 0:
+            raise AssertionError(f"{name}: lifecycle did not run in epochs")
+        epoch = be.epoch
+        usage = eng.cg.usage("/")
+        eng.close()
+        _launches_as_steps(counts, eng.step_no, eng.cfg.n_layers, name)
+        if report != ref or not eng.done():
+            raise AssertionError(f"{name}: full-width report differs from "
+                                 f"the reduced CPU run:\n{report}\n{ref}")
+        want_rebuilds = 1 if hook else 0
+        if eng.metrics.n_rebuilds != want_rebuilds or usage \
+                or report["survival"] != 1.0 or report["overshoot_pages"]:
+            raise AssertionError(f"{name}: rebuilds {eng.metrics.n_rebuilds}"
+                                 f", root usage {usage}: {report}")
+        out[name] = {"steps": eng.step_no, "epoch": epoch,
+                     "rebuilds": eng.metrics.n_rebuilds,
+                     "step_ms_p50": timing["step_ms_p50"],
+                     "step_ms_p95": timing["step_ms_p95"],
+                     "tokens_per_s": timing["tokens_per_s"],
+                     "launches": counts, "report": report}
+        del eng
+
+    cfg = get_config("llama3.2-3b")
+    ecfg = E.EngineConfig(**FULL_ENGINE, backend="sharded", n_shards=2)
+    tiny = dataclasses.replace(reduced(cfg), dtype="float32")
+    ref = run_engine(E, tiny, M.init_params(
+        tiny, torch.Generator().manual_seed(seed), device="cpu"),
+        full_sessions(S, D, seed), ecfg, "cpu").report()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    eng = E.Engine(cfg, params, ecfg=ecfg, seed=0, device=dev)
+    for sess in full_sessions(S, D, seed):
+        eng.submit(sess)
+    step_ms = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    while not eng.done():
+        if eng.step_no >= 8000:
+            raise AssertionError("the sharded engine did not finish")
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    counts = launch_counts()
+    report = eng.report()
+    _launches_as_steps(counts, eng.step_no, cfg.n_layers, "sharded")
+    placement = eng.cg.backend.placement()
+    if placement != {"/fg": 0, "/bg": 1}:
+        raise AssertionError(f"tenants not one a device group: {placement}")
+    if report != ref:
+        raise AssertionError(f"sharded: full-width report differs from the "
+                             f"reduced CPU run:\n{report}\n{ref}")
+    if report["completed"] != 8 or report["overshoot_pages"] \
+            or eng.cg.usage("/"):
+        raise AssertionError(f"sharded: {report}")
+    out["sharded"] = {"steps": eng.step_no, "n_shards": 2,
+                      "placement": placement,
+                      "step_ms_p50": statistics.median(step_ms),
+                      "step_ms_p95": float(np.percentile(step_ms, 95)),
+                      "launches": counts, "report": report}
+    return out
+
+
 def _host_gate(snap: dict, dom: list, step: int) -> list:
     """The stock programs' gate from the snapshot: no frozen or
     throttled ancestor within the 4-deep chain."""
@@ -1625,16 +1864,17 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernels,engine_parity,engine_full,conformance,"
-                            "replay,serve_full,train_parity,train_full,"
-                            "prefill_parity,prefill_full",
+                            "replay,serve_full,control_full,train_parity,"
+                            "train_full,prefill_parity,prefill_full",
                     help="comma-separated phases to run, of kernels, "
                          "engine_parity, engine_full, conformance, replay, "
-                         "serve_full, train_parity, train_full, "
-                         "prefill_parity, prefill_full, and profile, "
-                         "train_profile and prefill_profile (not in the "
-                         "default run); the result line is printed only "
-                         "when kernels, engine_full, conformance, "
-                         "serve_full, train_full and prefill_full ran")
+                         "serve_full, control_full, train_parity, "
+                         "train_full, prefill_parity, prefill_full, and "
+                         "profile, train_profile and prefill_profile (not "
+                         "in the default run); the result line is printed "
+                         "only when kernels, engine_full, conformance, "
+                         "serve_full, control_full, train_full and "
+                         "prefill_full ran")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -1664,12 +1904,14 @@ def main() -> None:
     if "kernels" in phases:
         emit({"phase": "sass", **kernel_sass(libs)})
         enf = check_enforcement(dev, args.seed)
+        shards = check_shard_enforcement(dev, args.seed)
         tim = time_enforcement(dev, args.seed)
         dec = check_decode(dev, args.seed)
         pag = check_paged(dev, args.seed)
         fla = check_flash(dev, args.seed)
         ssd = check_ssd(dev, args.seed)
         emit({"phase": "kernels", "card": card, "enforcement": enf,
+              "enforcement_shards": shards,
               "enforcement_times": tim, "decode_attention": dec,
               "paged_decode_attention": pag, "flash_attention": fla,
               "ssd_scan": ssd})
@@ -1678,12 +1920,16 @@ def main() -> None:
                 source="src/repro_torch/csrc/enforcement.cu",
                 replaces="src/repro/kernels/enforcement.py:149",
                 max_abs_err=enf["charge_max_abs_err"],
-                timing=tim["charge"] + (None,), extra=tim["charge_extra"]),
+                timing=tim["charge"] + (None,),
+                extra=dict(tim["charge_extra"], shard_shapes={
+                    k: v["charge"] for k, v in shards.items()})),
             "fused_slot_gate": dict(
                 source="src/repro_torch/csrc/enforcement.cu",
                 replaces="src/repro/kernels/enforcement.py:193",
                 max_abs_err=enf["gate_max_abs_err"],
-                timing=tim["gate"] + (None,), extra=tim["gate_extra"]),
+                timing=tim["gate"] + (None,),
+                extra=dict(tim["gate_extra"], shard_shapes={
+                    k: v["gate"] for k, v in shards.items()})),
             "decode_attention": dict(
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:87",
@@ -1731,6 +1977,11 @@ def main() -> None:
     if "serve_full" in phases:
         served = serve_full(dev, args.seed)
         emit({"phase": "serve_full", "card": card, **served})
+    ctrl = None
+    if "control_full" in phases:
+        ctrl = control_full(dev, args.seed,
+                            served["report"] if served else None)
+        emit({"phase": "control_full", "card": card, **ctrl})
     if "train_parity" in phases:
         emit({"phase": "train_parity", "card": card,
               **train_parity(dev, args.seed)})
@@ -1755,7 +2006,7 @@ def main() -> None:
         emit({"phase": "prefill_profile", "card": card,
               **prefill_profile(dev, args.seed)})
     if rows is None or full is None or train is None or prefill is None \
-            or conf is None or served is None:
+            or conf is None or served is None or ctrl is None:
         return
     launches = dict(full["launches"], **train["launches"],
                     ssd_scan=prefill["launches_per_prefill"]["ssd_scan"])
@@ -1763,7 +2014,14 @@ def main() -> None:
     by_path = {"engine_full": full["launches"],
                "serve_full": served["launches"],
                **{f"conformance_n{n}": c["launches"]
-                  for n, c in conf["sizes"].items()}}
+                  for n, c in conf["sizes"].items()},
+               **{f"conformance_{k}": c["launches"]
+                  for k, c in conf["kinds"].items()
+                  if not k.startswith("device_")},
+               **{f"conformance_faulty_{k}": c["launches"]
+                  for k, c in conf["faulty"].items()},
+               **{f"control_full_{k}": c["launches"]
+                  for k, c in ctrl.items()}}
     # the forward's errors include those at the prefill shape
     fwd = rows["flash_fwd"]
     for e in prefill["flash_fwd_prefill_errs"].values():

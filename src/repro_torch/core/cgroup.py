@@ -22,8 +22,11 @@ Backends conform to the ``Backend`` protocol:
     when the caller asks) with its ``DeviceView``: lifecycle host-side,
     enforcement in-step through the fused charge and gate kernels.
 
-The sharded backend and the async daemon wait for later slices (ROADMAP
-Queue 1 items 6 and 4).
+  * ``ShardedTableBackend`` (``core/sharded.py``) — the device table as
+    ``(n_shards, n)`` tensors with per-tenant shard placement.
+  * ``AsyncDaemonBackend`` (``core/daemon.py``) — wraps any of the above
+    and moves every lifecycle op onto a daemon thread behind a FIFO
+    queue, applied in epochs at ``flush()``.
 """
 from __future__ import annotations
 

@@ -19,6 +19,13 @@ State layout (fixed capacity ``n``; index 0 is the root):
 
 ``charge_batch`` serializes grants within a step, slot by slot — the
 same serialization the memcg page-counter hierarchy applies.
+
+The sharded backend (``core/sharded.py``) stacks S such tables on a
+leading axis: ``charge_batch`` and ``slot_gate`` given ``(S, n)`` state
+and an ``(S, m)`` matrix of shard-local slots charge or gate every shard
+at once (one kernel launch on CUDA); on CPU tensors they run the plain
+per-shard loops ``_plain_charge_shards`` / ``_plain_gate_shards``, what
+the reference's ``shard_map`` computes on each device.
 """
 from __future__ import annotations
 
@@ -158,7 +165,9 @@ def charge_batch(state: dict, dom, amt, step, prog=None):
     ``stalled`` marks retryable denials (throttle/freeze/hard max).
     Zero-amount requests are gated only by freeze/throttle.  The fused
     kernel's wrapper routes: CUDA state launches the kernel, CPU state
-    runs the plain loop below.
+    runs the plain loop below.  With a shard axis (``(S, n)`` state,
+    ``(S, m)`` shard-local ``dom``, shared ``(m,)`` ``amt``) every shard
+    charges its own row, and granted/stalled are ``(S, m)``.
     """
     from repro_torch.kernels.enforcement import fused_charge_batch
     return fused_charge_batch(state, dom.to(torch.int32),
@@ -213,6 +222,38 @@ def _plain_charge_batch(state: dict, dom, amt, step, progs):
                      mem_stall=mem_stall)
     return (new_state, torch.stack(granted) if granted else empty,
             torch.stack(stalled) if stalled else empty)
+
+
+def shard_slice(state: dict, s: int) -> dict:
+    """Shard ``s``'s ``(n,)`` table of an ``(S, n)`` state (views)."""
+    return {k: v[s] for k, v in state.items()}
+
+
+# the state columns a charge writes
+CHARGED_KEYS = ("usage", "peak", "throttle_until", "prog", "mem_stall")
+
+
+def _plain_charge_shards(state: dict, dom, amt, step, progs):
+    """The plain charge over an ``(S, n)`` state: shard ``s`` charges
+    ``dom[s]`` (shard-local indices, -1 off the shard) with the shared
+    ``amt``, one ``_plain_charge_batch`` a shard, as ``shard_map`` runs
+    the single-device charge on each device.  Returns (new_state,
+    granted (S, m), stalled (S, m)).  The CPU path and the reference the
+    shard-axis kernel is held against."""
+    outs = [_plain_charge_batch(shard_slice(state, s), dom[s], amt, step,
+                                progs) for s in range(dom.shape[0])]
+    new_state = dict(state, **{k: torch.stack([o[0][k] for o in outs])
+                               for k in CHARGED_KEYS})
+    return (new_state, torch.stack([o[1] for o in outs]),
+            torch.stack([o[2] for o in outs]))
+
+
+def _plain_gate_shards(state: dict, slot_dom, step, progs):
+    """The plain gate over an ``(S, n)`` state: ``(S, m)`` advance
+    flags, one ``_plain_slot_gate`` a shard."""
+    return torch.stack([_plain_slot_gate(shard_slice(state, s), slot_dom[s],
+                                         step, progs)
+                        for s in range(slot_dom.shape[0])])
 
 
 def host_charge(state: dict, idx: int, amt: int) -> dict:

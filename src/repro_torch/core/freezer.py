@@ -48,15 +48,26 @@ class FrozenStore:
         self.n_freezes = 0
         self.n_thaws = 0
         self.bytes_held = 0
+        # chaos seam: called with the session id after the host copy
+        # but BEFORE the entry commits; a raise aborts the freeze with
+        # the store unchanged (never a partial entry) — see
+        # ``FaultyBackend.offload_fault``
+        self.offload_hook: Optional[Any] = None
 
     def freeze(self, session_id: str, device_tree: Any, *, pages: int,
                meta: Optional[dict] = None, now: float = 0.0) -> None:
         """Offload a tree of device tensors to host memory.  ``now`` is
-        the caller's logical clock (engine step number).  The entry
-        commits only after the whole device->host copy succeeded."""
+        the caller's logical clock (engine step number).
+
+        Transactional: the entry (and the freeze/bytes accounting)
+        commits only after the whole device->host copy, and the
+        ``offload_hook`` chaos seam, succeeded, so a transient
+        mid-offload failure leaves the store exactly as it was."""
         if session_id in self._entries:
             raise KeyError(f"{session_id} is already frozen")
         host = _host_copy(device_tree)
+        if self.offload_hook is not None:
+            self.offload_hook(session_id)      # may raise: nothing committed
         self._entries[session_id] = FrozenEntry(
             session_id, host, pages, meta or {}, float(now))
         self.n_freezes += 1

@@ -56,6 +56,16 @@
 //     from the outputs and writes it back, in order.  No n or m is
 //     refused.
 //
+// The shard axis.  The sharded backend keeps S independent tables (one a
+// device group of the reference's mesh) as a leading axis: every state
+// column is (S, n), the parameter table (S, n, P), the slots an (S, m)
+// matrix of shard-local indices (-1 off the shard) over shared (m,)
+// amounts.  One launch serves all shards: the charge's grid is (ranges x
+// shards), blockIdx.y the shard, and each CTA works on its shard's slice
+// exactly as the S = 1 kernel works on the whole table (the reference
+// runs the single-device kernel per shard under shard_map); the gate
+// takes a thread a (shard, slot).  S = 1 is the device table's call.
+//
 // The gate (gate_kernel) is one thread a slot walking its chain with
 // __ldg: its device work was already a four-load walk; what this file
 // shares with it is the chain code.  enforcement_empty launches an empty
@@ -244,6 +254,43 @@ struct Outputs {
   uint8_t* granted;
   uint8_t* stalled;
 };
+
+// Shard s's slice of the (S, n) columns, (S, n, P) rows and (S, m) slots;
+// the amounts are shared by every shard.
+__device__ __forceinline__ Inputs shard_inputs(Inputs in, int s, int m,
+                                               int n, int P) {
+  const size_t sn = static_cast<size_t>(s) * n;
+  const size_t sm = static_cast<size_t>(s) * m;
+  in.dom += sm;
+  in.parent += sn;
+  in.high += sn;
+  in.max += sn;
+  in.low += sn;
+  in.frozen += sn;
+  in.priority += sn;
+  in.prog_id += sn;
+  in.usage += sn;
+  in.peak += sn;
+  in.tu += sn;
+  in.prog += sn * P;
+  in.stall += sn;
+  return in;
+}
+
+__device__ __forceinline__ Outputs shard_outputs(Outputs out, int s, int m,
+                                                 int n, int P) {
+  const size_t sn = static_cast<size_t>(s) * n;
+  const size_t sm = static_cast<size_t>(s) * m;
+  out.chains += sm;
+  out.usage += sn;
+  out.peak += sn;
+  out.tu += sn;
+  out.stall += sn;
+  out.prog += sn * P;
+  out.granted += sm;
+  out.stalled += sm;
+  return out;
+}
 
 // Copy every domain of [lo, hi) that no slot touches (bit clear) in ->
 // out; the peak takes usage_in into its max once any slot ran.
@@ -476,9 +523,12 @@ __device__ void decide_chunk(const Table& t, int len, int P, int32_t step,
 }
 
 __global__ void __launch_bounds__(kThreads) charge_kernel(
-    Inputs in, Outputs out, int m, int n, int P, int chunk, int32_t step,
-    float inv_step, unsigned long long kinds, int n_kinds) {
+    Inputs all_in, Outputs all_out, int m, int n, int P, int chunk,
+    int32_t step, float inv_step, unsigned long long kinds, int n_kinds) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // blockIdx.y is the shard: from here on, its slice is the whole table
+  const Inputs in = shard_inputs(all_in, blockIdx.y, m, n, P);
+  const Outputs out = shard_outputs(all_out, blockIdx.y, m, n, P);
   const Layout L = layout(chunk, P);
   const int tid = threadIdx.x;
   uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L.bits);
@@ -618,14 +668,20 @@ __global__ void __launch_bounds__(kThreads) charge_kernel(
 }
 
 // PolicyProgram.on_gate for every stock program: no frozen or throttled
-// ancestor.  One thread a slot walks its chain in device memory.
-__global__ void gate_kernel(const int32_t* __restrict__ dom, int m,
-                            int32_t step, const int32_t* __restrict__ parent,
+// ancestor.  One thread a (shard, slot) walks its chain in its shard's
+// slice of device memory.
+__global__ void gate_kernel(const int32_t* __restrict__ dom, int m, int S,
+                            int n, int32_t step,
+                            const int32_t* __restrict__ parent,
                             const uint8_t* __restrict__ frozen,
                             const int32_t* __restrict__ tu,
                             uint8_t* __restrict__ out) {
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
-  if (z >= m) return;
+  if (z >= S * m) return;
+  const size_t sn = static_cast<size_t>(z / m) * n;
+  parent += sn;
+  frozen += sn;
+  tu += sn;
   const int32_t d = __ldg(dom + z);
   int32_t chain[kDepth];
   ancestor_chain(parent, d, chain);
@@ -647,11 +703,11 @@ int g_smem_optin = 48 * 1024;   // dynamic shared memory allowed so far
 
 // The outputs live in one buffer `out` of int32 words, in this order
 // (kernels/enforcement.py::charge_outputs cuts the same views): usage,
-// peak, throttle_until, mem_stall (n each), prog (n P, f32), granted and
-// stalled (m bytes each), then the chunk scratch (m int4, from the next
-// 16-byte boundary).
+// peak, throttle_until, mem_stall (S n each), prog (S n P, f32), granted
+// and stalled (S m bytes each), then the chunk scratch (S m int4, from
+// the next 16-byte boundary).  Each is shard-major.
 extern "C" int enforcement_charge(
-    const int32_t* dom, const int32_t* amt, int m, int32_t step,
+    const int32_t* dom, const int32_t* amt, int m, int S, int32_t step,
     float inv_step, const int32_t* parent, const int32_t* high,
     const int32_t* max_, const int32_t* low, const uint8_t* frozen,
     const int32_t* priority, const int32_t* prog_id, const int32_t* usage_in,
@@ -659,7 +715,7 @@ extern "C" int enforcement_charge(
     const int32_t* stall_in, int n, int P, unsigned long long kinds,
     int n_kinds, int32_t* out, void* stream) {
   if (P < 1 || P > kMaxParams || n_kinds < 1 || n_kinds > 16 || m < 0 ||
-      n < 0)
+      n < 0 || S < 1 || S > 65535)
     return cudaErrorInvalidValue;
   if (n == 0 && m > 0) return cudaErrorInvalidValue;
   int chunk = 1;
@@ -674,7 +730,8 @@ extern "C" int enforcement_charge(
   }
   Inputs in{dom, amt, parent, high, max_, low, frozen, priority, prog_id,
             usage_in, peak_in, tu_in, prog_in, stall_in};
-  const size_t nn = static_cast<size_t>(n);
+  const size_t nn = static_cast<size_t>(S) * n;
+  const size_t mm = static_cast<size_t>(S) * m;
   Outputs o;
   o.usage = out;
   o.peak = o.usage + nn;
@@ -682,25 +739,29 @@ extern "C" int enforcement_charge(
   o.stall = o.tu + nn;
   o.prog = reinterpret_cast<float*>(o.stall + nn);
   o.granted = reinterpret_cast<uint8_t*>(o.prog + nn * P);
-  o.stalled = o.granted + m;
-  const size_t flags_end = (4 * (4 * nn + nn * P) + 2 * static_cast<size_t>(m));
+  o.stalled = o.granted + mm;
+  const size_t flags_end = 4 * (4 * nn + nn * P) + 2 * mm;
   o.chains = reinterpret_cast<int4*>(reinterpret_cast<uint8_t*>(out) +
                                      (flags_end + 15) / 16 * 16);
-  const int grid = n > kRange ? (n + kRange - 1) / kRange : 1;
+  const dim3 grid(n > kRange ? (n + kRange - 1) / kRange : 1, S);
   charge_kernel<<<grid, kThreads, L.bytes,
                   static_cast<cudaStream_t>(stream)>>>(
       in, o, m, n, P, chunk, step, inv_step, kinds, n_kinds);
   return cudaGetLastError();
 }
 
-extern "C" int enforcement_gate(const int32_t* dom, int m, int32_t step,
-                                const int32_t* parent, const uint8_t* frozen,
-                                const int32_t* tu, uint8_t* out,
-                                void* stream) {
+extern "C" int enforcement_gate(const int32_t* dom, int m, int S, int n,
+                                int32_t step, const int32_t* parent,
+                                const uint8_t* frozen, const int32_t* tu,
+                                uint8_t* out, void* stream) {
+  if (m < 0 || S < 1 || n < 0 || static_cast<long long>(S) * m > 2147483647)
+    return cudaErrorInvalidValue;
   const int threads = 128;
-  gate_kernel<<<m > 0 ? (m + threads - 1) / threads : 1, threads, 0,
-                static_cast<cudaStream_t>(stream)>>>(dom, m, step, parent,
-                                                     frozen, tu, out);
+  const int total = S * m;
+  gate_kernel<<<total > 0 ? (total + threads - 1) / threads : 1, threads, 0,
+                static_cast<cudaStream_t>(stream)>>>(dom, m, S, n, step,
+                                                     parent, frozen, tu,
+                                                     out);
   return cudaGetLastError();
 }
 

@@ -9,10 +9,19 @@ thread per slot.  The source note there says what bounds the kernels
 (launch latency and the serial slot chain, not bytes or operations) and
 how the design answers it.
 
+Both take an optional leading shard axis: a state of ``(S, n)`` columns
+(``(S, n, P)`` parameters) with an ``(S, m)`` matrix of shard-local
+slot indices (-1 off the shard) and shared ``(m,)`` amounts is charged
+or gated per shard, all shards in one launch (the sharded backend's
+in-step path, ``core/sharded.py``); a state of ``(n,)`` columns with
+``(m,)`` slots is the same call at S = 1 (the device table's path).
+
 The plain versions are ``core/controller.py``'s ``_plain_charge_batch``
 and ``_plain_slot_gate`` (re-exported here as ``charge_batch_plain`` and
-``slot_gate_plain``): the wrappers take them only for CPU tensors; for
-CUDA tensors they launch the kernel or raise.  The stock programs'
+``slot_gate_plain``) and, over a shard axis, their per-shard loops
+``_plain_charge_shards`` and ``_plain_gate_shards``: the wrappers take
+them only for CPU tensors; for CUDA tensors they launch the kernel or
+raise.  The stock programs'
 decision code is compiled into the kernel, selected per registry slot by
 a kind code; a registry holding any other program (a user subclass) has
 no CUDA form and raises on CUDA, naming the program.
@@ -36,6 +45,8 @@ import ctypes
 import torch
 
 from repro_torch.core.controller import (_plain_charge_batch,
+                                         _plain_charge_shards,
+                                         _plain_gate_shards,
                                          _plain_slot_gate, step_reciprocal)
 from repro_torch.core.progs import (GraduatedThrottleProgram, PolicyProgram,
                                     TokenBucketProgram, as_programs)
@@ -76,11 +87,15 @@ fused_slot_gate.launches = 0
 
 
 def _charge_route(dom):
-    return _launch_charge if dom.is_cuda else _plain_charge_batch
+    if dom.is_cuda:
+        return _launch_charge
+    return _plain_charge_batch if dom.dim() == 1 else _plain_charge_shards
 
 
 def _gate_route(slot_dom):
-    return _launch_gate if slot_dom.is_cuda else _plain_slot_gate
+    if slot_dom.is_cuda:
+        return _launch_gate
+    return _plain_slot_gate if slot_dom.dim() == 1 else _plain_gate_shards
 
 
 def kind_codes(progs) -> list:
@@ -141,39 +156,48 @@ def _ok(t: torch.Tensor, dtype, shape, device) -> bool:
 
 def charge_checks(state: dict, dom, amt) -> tuple:
     """Device, type, shape and contiguity of every tensor the charge
-    kernel reads; ``(m, n, P)``.  Raises, naming the tensor, on what the
-    kernel does not take."""
+    kernel reads, with or without a leading shard axis (the same on
+    every tensor but the shared amounts); ``(m, n, P)``.  Raises, naming
+    the tensor, on what the kernel does not take."""
     dev = dom.device
-    m = dom.shape[0]
-    n = state["usage"].shape[0]
+    shape = state["usage"].shape           # (n,) or (S, n)
+    n = shape[-1]
+    m = dom.shape[-1]
     prog = state["prog"]
     P = prog.shape[-1]
     if P > _MAX_PARAMS:
         raise ValueError(f"param table width {P} > {_MAX_PARAMS}")
+    if len(shape) > 2:
+        raise ValueError(f"state columns of shape {tuple(shape)}: want "
+                         "(n,) or (S, n)")
     i32 = torch.int32
-    shape = (n,)
-    ok = (_ok(dom, i32, (m,), dev) and _ok(amt, i32, (m,), dev)
+    slots = shape[:-1] + (m,)
+    ok = (_ok(dom, i32, slots, dev) and _ok(amt, i32, (m,), dev)
           and _ok(state["frozen"], torch.bool, shape, dev)
-          and _ok(prog, torch.float32, (n, P), dev))
+          and _ok(prog, torch.float32, shape + (P,), dev))
     for key in _INT_COLUMNS:
         ok = ok and _ok(state[key], i32, shape, dev)
     if not ok:
-        _check(dom, "dom", i32, (m,), dev)
+        _check(dom, "dom", i32, slots, dev)
         _check(amt, "amt", i32, (m,), dev)
         for key in _INT_COLUMNS:
             _check(state[key], key, i32, shape, dev)
         _check(state["frozen"], "frozen", torch.bool, shape, dev)
-        _check(prog, "prog", torch.float32, (n, P), dev)
+        _check(prog, "prog", torch.float32, shape + (P,), dev)
     return m, n, P
 
 
-def charge_outputs(m: int, n: int, P: int, dev) -> tuple:
+def charge_outputs(m: int, n: int, P: int, dev, lead=()) -> tuple:
     """One allocation of int32 words, carved as
-    ``csrc/enforcement.cu::enforcement_charge`` lays it out: usage,
-    peak, throttle_until, mem_stall (n each), prog (n P, f32), granted
-    and stalled (m bytes each, a uint8 region viewed as bool), then the
-    chunk scratch (16 m bytes from the next 16-byte boundary).  Returns
-    ``(buffer, usage, peak, tu, stall, prog, granted, stalled)``."""
+    ``csrc/enforcement.cu::enforcement_charge`` lays it out for S shards
+    (``lead = (S,)``; ``()`` is S = 1 without the axis): usage, peak,
+    throttle_until, mem_stall (S n each), prog (S n P, f32), granted and
+    stalled (S m bytes each, a uint8 region viewed as bool), then the
+    chunk scratch (16 S m bytes from the next 16-byte boundary).  Returns
+    ``(buffer, usage, peak, tu, stall, prog, granted, stalled)``, each
+    view of shape ``lead + (n,)``, ``lead + (n, P)`` or ``lead + (m,)``."""
+    if lead:
+        n, m, S = n * lead[0], m * lead[0], lead[0]
     head = 4 * n + n * P
     scratch = (4 * head + 2 * m + 15) // 16 * 16
     words = (scratch + 16 * m) // 4 - head
@@ -181,15 +205,22 @@ def charge_outputs(m: int, n: int, P: int, dev) -> tuple:
     usage, peak, tu, stall, prog, rest = torch.split_with_sizes(
         buf, (n, n, n, n, n * P, words))
     flags = rest.view(torch.bool)
-    return (buf, usage, peak, tu, stall,
-            prog.view(torch.float32).view(n, P), flags[:m], flags[m:2 * m])
+    if not lead:      # the device table's call: no more views (~20 µs)
+        return (buf, usage, peak, tu, stall,
+                prog.view(torch.float32).view(n, P), flags[:m],
+                flags[m:2 * m])
+    col, slots = (S, n // S), (S, m // S)
+    return (buf, usage.view(col), peak.view(col), tu.view(col),
+            stall.view(col), prog.view(torch.float32).view(col + (P,)),
+            flags[:m].view(slots), flags[m:2 * m].view(slots))
 
 
-def charge_call(state: dict, dom, amt, step, consts, m, n, P, buf) -> None:
+def charge_call(state: dict, dom, amt, step, consts, m, n, P, buf,
+                S: int = 1) -> None:
     """The ctypes call that launches the charge kernel into ``buf``."""
     kinds, n_kinds, inv_step, _ = consts
     err = _charge_lib().enforcement_charge(
-        dom.data_ptr(), amt.data_ptr(), m, int(step), inv_step,
+        dom.data_ptr(), amt.data_ptr(), m, S, int(step), inv_step,
         state["parent"].data_ptr(), state["high"].data_ptr(),
         state["max"].data_ptr(), state["low"].data_ptr(),
         state["frozen"].data_ptr(), state["priority"].data_ptr(),
@@ -203,9 +234,11 @@ def charge_call(state: dict, dom, amt, step, consts, m, n, P, buf) -> None:
 def _launch_charge(state: dict, dom, amt, step, progs):
     consts = registry_constants(progs)
     m, n, P = charge_checks(state, dom, amt)
+    lead = dom.shape[:-1]
     buf, usage, peak, tu, stall, params, granted, stalled = charge_outputs(
-        m, n, P, dom.device)
-    charge_call(state, dom, amt, step, consts, m, n, P, buf)
+        m, n, P, dom.device, lead)
+    charge_call(state, dom, amt, step, consts, m, n, P, buf,
+                lead[0] if lead else 1)
     fused_charge_batch.launches += 1
     new_state = dict(state, usage=usage, peak=peak, throttle_until=tu,
                      prog=params, mem_stall=stall)
@@ -215,15 +248,19 @@ def _launch_charge(state: dict, dom, amt, step, progs):
 def gate_checks(state: dict, slot_dom) -> tuple:
     """The gate kernel's tensors, as ``charge_checks``; ``(m, n)``."""
     dev = slot_dom.device
-    m = slot_dom.shape[0]
-    n = state["usage"].shape[0]
+    shape = state["parent"].shape          # (n,) or (S, n)
+    n = shape[-1]
+    m = slot_dom.shape[-1]
+    if len(shape) > 2:
+        raise ValueError(f"state columns of shape {tuple(shape)}: want "
+                         "(n,) or (S, n)")
     i32 = torch.int32
-    shape = (n,)
-    if not (_ok(slot_dom, i32, (m,), dev)
+    slots = shape[:-1] + (m,)
+    if not (_ok(slot_dom, i32, slots, dev)
             and _ok(state["parent"], i32, shape, dev)
             and _ok(state["throttle_until"], i32, shape, dev)
             and _ok(state["frozen"], torch.bool, shape, dev)):
-        _check(slot_dom, "slot_dom", i32, (m,), dev)
+        _check(slot_dom, "slot_dom", i32, slots, dev)
         for key in ("parent", "throttle_until"):
             _check(state[key], key, i32, shape, dev)
         _check(state["frozen"], "frozen", torch.bool, shape, dev)
@@ -235,17 +272,19 @@ def _launch_gate(state: dict, slot_dom, step, progs):
         bad = [type(p).__name__ for p in progs
                if type(p).on_gate is not PolicyProgram.on_gate]
         raise NotImplementedError(f"{bad[0]}.on_gate has no CUDA form")
-    m, _ = gate_checks(state, slot_dom)
-    out = torch.empty(m, dtype=torch.bool, device=slot_dom.device)
-    gate_call(state, slot_dom, step, m, out)
+    m, n = gate_checks(state, slot_dom)
+    lead = slot_dom.shape[:-1]
+    out = torch.empty(lead + (m,), dtype=torch.bool, device=slot_dom.device)
+    gate_call(state, slot_dom, step, m, out, n, lead[0] if lead else 1)
     fused_slot_gate.launches += 1
     return out
 
 
-def gate_call(state: dict, slot_dom, step, m, out) -> None:
+def gate_call(state: dict, slot_dom, step, m, out, n: int,
+              S: int = 1) -> None:
     """The ctypes call that launches the gate kernel into ``out``."""
     err = _gate_lib().enforcement_gate(
-        slot_dom.data_ptr(), m, int(step), state["parent"].data_ptr(),
+        slot_dom.data_ptr(), m, S, n, int(step), state["parent"].data_ptr(),
         state["frozen"].data_ptr(), state["throttle_until"].data_ptr(),
         out.data_ptr(), _stream(slot_dom.device))
     _build.check(err, "enforcement_gate")
@@ -274,7 +313,7 @@ def _charge_lib():
     lib = _build.load("enforcement")
     fn = lib.enforcement_charge
     if fn.argtypes is None:
-        fn.argtypes = ([_P, _P, _I, ctypes.c_int32, ctypes.c_float]
+        fn.argtypes = ([_P, _P, _I, _I, ctypes.c_int32, ctypes.c_float]
                        + [_P] * 12 + [_I, _I, ctypes.c_ulonglong, _I]
                        + [_P, _P])
         fn.restype = _I
@@ -285,6 +324,6 @@ def _gate_lib():
     lib = _build.load("enforcement")
     fn = lib.enforcement_gate
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, ctypes.c_int32, _P, _P, _P, _P, _P]
+        fn.argtypes = [_P, _I, _I, _I, ctypes.c_int32, _P, _P, _P, _P, _P]
         fn.restype = _I
     return lib

@@ -42,20 +42,41 @@ JSON line with:
 
 One more line per shape gives the launch floor: the device time, issue
 pace and host time of ``csrc/enforcement.cu``'s empty kernel launched
-through the same ctypes path.  With ``--parent DIR`` the enforcement
-wrapper and ``csrc/enforcement.cu`` of another checkout at DIR (e.g.
-``git archive <commit> | tar -x -C build/parent``) are built and timed
+through the same ctypes path.
+
+The sharded backend's in-step shapes, ``SHARD_SHAPES``, stack S such
+tables on a leading axis and spread m slots over them (one launch for
+all shards; ``shard_case``):
+
+=======  ==  =====  ===  ===========================================
+shape    S   n      m    slots
+=======  ==  =====  ===  ===========================================
+groups   8   513    64   slot j on shard 8 j / 64: 8 device groups of
+                         one node, 4,104 domains in all
+spread   8   1,032  256  each slot on a shard from a seeded generator
+=======  ==  =====  ===  ===========================================
+
+For each kernel and shard shape, one line with ``device_ms`` (a
+launch's, over the launches the profiler saw), ``issue_ms``,
+``bound_ms`` and ``bit_exact`` (against the plain per-shard loop) as
+above, and ``as_shard_launches_ms``: the device time of the same work as
+S launches at S = 1, one a shard's slice.
+
+With ``--parent DIR`` the enforcement wrapper and
+``csrc/enforcement.cu`` of another checkout at DIR (one whose wrapper
+has the same pieces, ``wrapper_parts``; e.g. ``git archive <commit> |
+tar -x -C build/parent``) are built and timed at the three table shapes
 in the same process, in turns (parent, this, this, parent); its host
 parts are timed on the same pieces of its own code.  Where the parent
-refuses a shape (its kernel staged the whole table in shared memory),
-its line records the error and the run goes on.  Prints the card's name
-and power limit first.
+refuses a shape, its line records the error and the run goes on.
+Prints the card's name and power limit first.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import importlib.util
+import inspect
 import json
 import subprocess
 import time
@@ -77,9 +98,16 @@ SHAPES = {
     "wide": dict(slots=256, registry="mixed", calls=100),
     "beyond": dict(slots=1024, registry="mixed", calls=40),
 }
+# the sharded backend's in-step shapes (module docstring)
+SHARD_SHAPES = {
+    "groups": dict(shards=8, n=513, slots=64, spread="even",
+                   registry="mixed", calls=100),
+    "spread": dict(shards=8, n=1032, slots=256, spread="seeded",
+                   registry="mixed", calls=60),
+}
 FLUSH_BYTES = 64 << 20
 INT32_MAX = 2**31 - 1
-STATE_KEYS = ("usage", "peak", "throttle_until", "prog", "mem_stall")
+STATE_KEYS = C.CHARGED_KEYS
 
 
 def registries() -> dict:
@@ -93,11 +121,12 @@ def registries() -> dict:
             "mixed": (grad, tb, wf, PolicyProgram())}
 
 
-def engine_case(slots: int, progs, seed: int, device, *, negative=False,
-                dup=False, ancestor=False, peak_below=False,
+def engine_case(slots: int, progs, seed: int, device, *, n=None,
+                negative=False, dup=False, ancestor=False, peak_below=False,
                 prog_oob=False) -> tuple:
     """``(state, dom, amt, step)`` of one charge over an engine-shaped
-    table of ``4 slots + 8`` domains (module docstring), from a seeded
+    table of ``4 slots + 8`` domains (module docstring; ``n`` domains
+    when given, at least ``2 slots + 8``, the rest free), from a seeded
     generator.  Options for the checks: ``negative`` amounts on a
     quarter of the slots; ``dup`` slots that charge slot 0's domain
     again; ``ancestor``: slot 0 charges a tenant over its
@@ -105,7 +134,9 @@ def engine_case(slots: int, progs, seed: int, device, *, negative=False,
     denies slot 1 in the same batch; ``peak_below``: peaks under usage;
     ``prog_oob``: program ids outside the registry."""
     rng = np.random.default_rng(seed)
-    n, m = 4 * slots + 8, slots
+    n, m = (4 * slots + 8 if n is None else n), slots
+    if n < 2 * slots + 8:
+        raise ValueError(f"{n} domains hold no {slots} sessions and tools")
     step = int(rng.integers(20, 200))
     sess = 8 + np.arange(slots)
     tool = sess + slots
@@ -191,6 +222,33 @@ def shape_case(shape: str, device, seed: int = 0) -> tuple:
     return (*engine_case(spec["slots"], progs, seed, device), progs)
 
 
+def shard_case(shape: str, device, seed: int = 0) -> tuple:
+    """``(state, dom, amt, step, progs)`` of one in-step charge over a
+    shard shape: S engine-shaped tables of n domains (``engine_case``,
+    one seed a shard) stacked into ``(S, n)`` columns, the ``(S, m)``
+    matrix of shard-local slots (-1 off the slot's shard) and the shared
+    ``(m,)`` amounts.  ``even`` puts slot j on shard ``j S / m``,
+    ``seeded`` on a shard drawn by a seeded generator; a slot charges
+    one of its shard's sessions or tool calls (a tenth dead)."""
+    spec = SHARD_SHAPES[shape]
+    S, n, m = spec["shards"], spec["n"], spec["slots"]
+    progs = registries()[spec["registry"]]
+    per = (n - 8) // 4
+    cases = [engine_case(per, progs, seed * 1000 + s, device, n=n)
+             for s in range(S)]
+    rng = np.random.default_rng([seed, S, n, m])
+    owner = (np.arange(m) * S // m if spec["spread"] == "even"
+             else rng.integers(0, S, m))
+    dom = np.full((S, m), -1, np.int32)
+    for j, s in enumerate(owner):
+        dom[s, j] = int(cases[s][1][j % per])
+    amt = rng.choice([0, 1, 1, 2, 3, 5, 40], m).astype(np.int32)
+    state = {k: torch.stack([c[0][k] for c in cases]) for k in cases[0][0]}
+    to = dict(dtype=torch.int32, device=device)
+    return (state, torch.as_tensor(dom, **to), torch.as_tensor(amt, **to),
+            cases[0][3], progs)
+
+
 def _chains(parent: np.ndarray, dom: np.ndarray) -> list:
     """Each slot's chain as a list (a dead slot: [])."""
     out = []
@@ -203,33 +261,46 @@ def _chains(parent: np.ndarray, dom: np.ndarray) -> list:
     return out
 
 
+def _shards(state: dict, dom) -> list:
+    """``[(parent, dom)]`` a shard, as numpy (one pair without the
+    shard axis)."""
+    parent = state["parent"].cpu().numpy()
+    d = dom.cpu().numpy()
+    if d.ndim == 1:
+        return [(parent, d)]
+    return list(zip(parent, d))
+
+
 def charge_bound(state: dict, dom) -> tuple:
     """``timing.bound_ms`` of a charge: dom and amt; parent, high, max,
     low, priority, prog_id and frozen of each touched domain; usage,
     peak, throttle_until, mem_stall and the parameter row of every
     domain read and written; granted and stalled; ~40 operations a
-    chain level."""
-    parent = state["parent"].cpu().numpy()
-    d = dom.cpu().numpy()
-    chains = _chains(parent, d)
-    touched = {x for c in chains for x in c} | ({0} if (d < 0).any()
-                                                 else set())
-    n, P = state["prog"].shape
-    m = len(d)
-    n_bytes = (2 * m * 4 + len(touched) * (6 * 4 + 1)
-               + 2 * n * (4 * 4 + P * 4) + 2 * m)
-    return timing.bound_ms(n_bytes, 40 * sum(map(len, chains)),
-                           torch.float32)
+    chain level.  With a shard axis, each shard's share summed (the
+    amounts read once)."""
+    n, P = state["prog"].shape[-2:]
+    n_bytes, ops = 0, 0
+    for parent, d in _shards(state, dom):
+        chains = _chains(parent, d)
+        touched = {x for c in chains for x in c} | ({0} if (d < 0).any()
+                                                     else set())
+        m = len(d)
+        n_bytes += (m * 4 + len(touched) * (6 * 4 + 1)
+                    + 2 * n * (4 * 4 + P * 4) + 2 * m)
+        ops += 40 * sum(map(len, chains))
+    return timing.bound_ms(n_bytes + dom.shape[-1] * 4, ops, torch.float32)
 
 
 def gate_bound(state: dict, dom) -> tuple:
     """``timing.bound_ms`` of a gate: slot_dom, parent, frozen and
     throttle_until of each chain level, the flags."""
-    chains = _chains(state["parent"].cpu().numpy(), dom.cpu().numpy())
-    levels = sum(map(len, chains))
-    m = len(chains)
-    return timing.bound_ms(m * 4 + levels * 9 + m, 8 * levels,
-                           torch.float32)
+    n_bytes, ops = 0, 0
+    for parent, d in _shards(state, dom):
+        chains = _chains(parent, d)
+        levels = sum(map(len, chains))
+        n_bytes += len(chains) * 5 + levels * 9
+        ops += 8 * levels
+    return timing.bound_ms(n_bytes, ops, torch.float32)
 
 
 def same_tables(a: dict, b: dict) -> bool:
@@ -250,11 +321,18 @@ def cold_device_ms(fn, kernel: str, calls: int, dev) -> tuple:
 
     call()
     torch.cuda.synchronize()
-    seen = timing.device_ms(call, calls)
-    hits = [v for k, v in seen.items() if kernel in k]
-    if not hits:
-        raise AssertionError(f"the profiler saw no {kernel}: {list(seen)}")
-    return sum(ms for ms, _ in hits), sum(c for _, c in hits)
+    # the profiler now and then returns no event at all for these short
+    # ctypes launches after many sessions in one process: a session that
+    # saw none is repeated, at most three times
+    for _ in range(3):
+        try:
+            seen = timing.device_ms(call, calls)
+        except AssertionError:
+            seen = {}
+        hits = [v for k, v in seen.items() if kernel in k]
+        if hits:
+            return sum(ms for ms, _ in hits), sum(c for _, c in hits)
+    raise AssertionError(f"the profiler saw no {kernel}: {list(seen)}")
 
 
 def host_ms(fn, iters: int) -> float:
@@ -270,18 +348,23 @@ def host_ms(fn, iters: int) -> float:
     return (t1 - t0) / iters * 1e3
 
 
-def this_parts(K, kernel: str, st, dom, amt, step, progs) -> dict:
-    """This checkout's wrapper, piece by piece."""
+def wrapper_parts(K, kernel: str, st, dom, amt, step, progs) -> dict:
+    """A checkout's wrapper module ``K`` (this one's, or a parent's with
+    the same pieces: registry constants, checks, output carve, ctypes
+    call), piece by piece.  A parent without the shard axis has a gate
+    call that takes no table width."""
     dev = dom.device
     consts = K.registry_constants(progs)
     if kernel == "gate":
-        m, _ = K.gate_checks(st, dom)
+        m, n = K.gate_checks(st, dom)
         out = torch.empty(m, dtype=torch.bool, device=dev)
+        width = ((n,) if "n" in inspect.signature(K.gate_call).parameters
+                 else ())
         return {
             "constants": lambda: K.registry_constants(progs),
             "checks": lambda: K.gate_checks(st, dom),
             "alloc": lambda: torch.empty(m, dtype=torch.bool, device=dev),
-            "call": lambda: K.gate_call(st, dom, step, m, out),
+            "call": lambda: K.gate_call(st, dom, step, m, out, *width),
             "wrapper": lambda: K.fused_slot_gate(st, dom, step, progs)}
     m, n, P = K.charge_checks(st, dom, amt)
     buf = K.charge_outputs(m, n, P, dev)[0]
@@ -292,86 +375,6 @@ def this_parts(K, kernel: str, st, dom, amt, step, progs) -> dict:
         "call": lambda: K.charge_call(st, dom, amt, step, consts, m, n, P,
                                       buf),
         "wrapper": lambda: K.fused_charge_batch(st, dom, amt, step, progs)}
-
-
-def parent_parts(mod, kernel: str, st, dom, amt, step, progs) -> dict:
-    """The parent's ``_launch_charge`` / ``_launch_gate``, cut into the
-    same pieces from its own helpers (its wrapper is one function)."""
-    dev = dom.device
-    m = dom.shape[0]
-    n = st["usage"].shape[0]
-    P = st["prog"].shape[1]
-    i32 = torch.int32
-
-    if kernel == "gate":
-        def constants():
-            mod.kind_codes(progs)
-            for p in progs:
-                assert type(p).on_gate is PolicyProgram.on_gate
-
-        def checks():
-            mod._check(dom, "slot_dom", i32, (m,), dev)
-            for key in ("parent", "throttle_until"):
-                mod._check(st[key], key, i32, (n,), dev)
-            mod._check(st["frozen"], "frozen", torch.bool, (n,), dev)
-
-        out = torch.empty(m, dtype=torch.bool, device=dev)
-        lib = mod._gate_lib()
-
-        def call():
-            err = lib.enforcement_gate(
-                dom.data_ptr(), m, int(step), st["parent"].data_ptr(),
-                st["frozen"].data_ptr(), st["throttle_until"].data_ptr(),
-                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-            _build.check(err, "parent enforcement_gate")
-
-        return {"constants": constants, "checks": checks,
-                "alloc": lambda: torch.empty(m, dtype=torch.bool,
-                                             device=dev),
-                "call": call,
-                "wrapper": lambda: mod.fused_slot_gate(st, dom, step, progs)}
-
-    def constants():
-        codes = mod.kind_codes(progs)
-        return (sum(c << (4 * i) for i, c in enumerate(codes)),
-                float(mod.step_reciprocal(progs)))
-
-    def checks():
-        mod._check(dom, "dom", i32, (m,), dev)
-        mod._check(amt, "amt", i32, (m,), dev)
-        for key in ("parent", "high", "max", "low", "priority", "prog_id",
-                    "usage", "peak", "throttle_until", "mem_stall"):
-            mod._check(st[key], key, i32, (n,), dev)
-        mod._check(st["frozen"], "frozen", torch.bool, (n,), dev)
-        mod._check(st["prog"], "prog", torch.float32, (n, P), dev)
-
-    def alloc():
-        return (torch.empty_like(st["usage"]), torch.empty_like(st["peak"]),
-                torch.empty_like(st["throttle_until"]),
-                torch.empty_like(st["prog"]),
-                torch.empty_like(st["mem_stall"]),
-                torch.empty(m, dtype=torch.bool, device=dev),
-                torch.empty(m, dtype=torch.bool, device=dev))
-
-    kinds, inv_step = constants()
-    outs = alloc()
-    lib = mod._charge_lib()
-
-    def call():
-        err = lib.enforcement_charge(
-            dom.data_ptr(), amt.data_ptr(), m, int(step), inv_step,
-            *(st[k].data_ptr() for k in (
-                "parent", "high", "max", "low", "frozen", "priority",
-                "prog_id", "usage", "peak", "throttle_until", "prog",
-                "mem_stall")),
-            n, P, kinds, len(progs), *(t.data_ptr() for t in outs),
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "parent enforcement_charge")
-
-    return {"constants": constants, "checks": checks, "alloc": alloc,
-            "call": call,
-            "wrapper": lambda: mod.fused_charge_batch(st, dom, amt, step,
-                                                      progs)}
 
 
 def measure(mod, parts: dict, kernel: str, case: tuple, calls: int) -> dict:
@@ -392,6 +395,50 @@ def measure(mod, parts: dict, kernel: str, case: tuple, calls: int) -> dict:
     host = {k: host_ms(f, calls) for k, f in parts.items()}
     return {"device_ms": dev_ms, "kernels_per_call": launches,
             "issue_ms": timing.cuda_ms(fn, calls), "host_ms": host,
+            "bit_exact": bool(exact)}
+
+
+def measure_shards(K, kernel: str, case: tuple, calls: int) -> dict:
+    """One shard shape (module docstring): the one launch over every
+    shard against the plain per-shard loop, its cold device time and
+    issue pace, and the same work as S launches at S = 1."""
+    st, dom, amt, step, progs = case
+    dev = dom.device
+    slices = [({k: v[s] for k, v in st.items()}, dom[s])
+              for s in range(dom.shape[0])]
+    if kernel == "gate":
+        def fn():
+            return K.fused_slot_gate(st, dom, step, progs)
+
+        def per_shard():
+            for sub, d in slices:
+                K.fused_slot_gate(sub, d, step, progs)
+
+        exact = torch.equal(fn(), C._plain_gate_shards(st, dom, step, progs))
+    else:
+        def fn():
+            return K.fused_charge_batch(st, dom, amt, step, progs)
+
+        def per_shard():
+            for sub, d in slices:
+                K.fused_charge_batch(sub, d, amt, step, progs)
+
+        got, g, s = fn()
+        want, wg, ws = C._plain_charge_shards(st, dom, amt, step, progs)
+        exact = (same_tables(got, want) and torch.equal(g, wg)
+                 and torch.equal(s, ws))
+    # the profiler drops some events of these short ctypes launches (it
+    # saw 0.92 of them a call in a run of this bench); a launch's time
+    # is the total over the launches it saw, and the loop's is S times
+    # that mean
+    dev_ms, seen = cold_device_ms(fn, f"{kernel}_kernel", calls, dev)
+    loop_ms, loop_seen = cold_device_ms(per_shard, f"{kernel}_kernel",
+                                        calls, dev)
+    return {"device_ms": dev_ms / seen, "profiled_per_call": seen,
+            "issue_ms": timing.cuda_ms(fn, calls),
+            "as_shard_launches_ms": loop_ms / loop_seen * len(slices),
+            "as_shard_launches_profiled_per_call": loop_seen,
+            "as_shard_launches_issue_ms": timing.cuda_ms(per_shard, calls),
             "bit_exact": bool(exact)}
 
 
@@ -464,9 +511,8 @@ def main() -> None:
                             "P": st["prog"].shape[1],
                             "bound_ms": bounds[kernel][0],
                             "bound_by": bounds[kernel][1]}
-                    make = parent_parts if name == "parent" else this_parts
                     try:
-                        parts = make(mod, kernel, *case)
+                        parts = wrapper_parts(mod, kernel, *case)
                         line.update(measure(mod, parts, kernel, case,
                                             spec["calls"]))
                     except RuntimeError as err:
@@ -475,6 +521,24 @@ def main() -> None:
                         line["refused"] = str(err).splitlines()[0]
                         torch.cuda.synchronize()
                     print(json.dumps(line), flush=True)
+        # the shard axis: this checkout's kernels only (a parent may
+        # have none)
+        _build._loaded["enforcement"] = impls["this"][1]
+        for shape, spec in SHARD_SHAPES.items():
+            case = shard_case(shape, dev)
+            st, dom = case[0], case[1]
+            bounds = {"charge": charge_bound(st, dom),
+                      "gate": gate_bound(st, dom)}
+            for kernel in ("gate", "charge"):
+                print(json.dumps({
+                    "shape": shape, "kernel": kernel, "impl": "this",
+                    "card": card, "S": dom.shape[0],
+                    "n": st["usage"].shape[1], "m": dom.shape[1],
+                    "P": st["prog"].shape[2],
+                    "bound_ms": bounds[kernel][0],
+                    "bound_by": bounds[kernel][1],
+                    **measure_shards(K, kernel, case, spec["calls"])}),
+                    flush=True)
     finally:
         _build._loaded["enforcement"] = impls["this"][1]
 

@@ -52,12 +52,14 @@ def default_sessions(n: int, seed: int = 0) -> list:
     return out
 
 
-def serve(args, after_step=None) -> tuple:
+def serve(args, after_step=None, **engine) -> tuple:
     """Build the model and the engine, submit the sessions and step until
     every one is done or ``--max-steps``; returns the engine and the
     step timing (host clock, ending in a synchronize on the card).
     ``after_step(engine)``, when given, runs after each step, outside
-    the timed span (a caller's check of the live state)."""
+    the timed span (a caller's check of the live state); ``engine``
+    holds further ``EngineConfig`` fields (the control plane's
+    ``backend``, ``async_inner``, ``n_shards``)."""
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -72,6 +74,7 @@ def serve(args, after_step=None) -> tuple:
         use_intent=(args.mode == "inkernel"),
         session_high=(json.loads(args.session_high) if args.session_high
                       else None),
+        **engine,
     )
     eng = Engine(cfg, params, ecfg=ecfg, seed=args.seed, device=dev)
     sessions = default_sessions(args.sessions, seed=args.seed)

@@ -16,9 +16,16 @@ charge path a decoded token uses).  The controller runs in one of:
 Host-side daemon work (lifecycle only, as in the paper): admission,
 per-tool-call child domains with intent-hint highs, freeze/thaw with
 state offload, downward feedback, and (with ``adaptive=``) the
-closed-loop pressure retuner polled at step boundaries.  The port runs
-the synchronous device-table backend; the async daemon and the sharded
-backend raise ``NotImplementedError`` naming their ROADMAP item.
+closed-loop pressure retuner polled at step boundaries.  The control
+plane is the device table (``backend="device"``), the sharded table
+(``backend="sharded"``, ``n_shards`` device groups of ``pool_pages``
+each) or either behind the async lifecycle daemon (``backend="async"``,
+``async_inner``): there the lifecycle work runs on the daemon thread in
+FIFO epochs applied at the ``cg.flush()`` each step issues before it
+reads the control state, bit-exact with the synchronous backends.  A
+poisoned daemon surfaces there as ``DaemonError``; the engine rebuilds
+the backend from the last step-boundary snapshot and its own session
+state, and the step goes on.
 """
 from __future__ import annotations
 
@@ -34,30 +41,27 @@ from repro_torch.core import pressure as PSI
 from repro_torch.core.adaptive import AdaptiveConfig, AdaptiveController
 from repro_torch.core.cgroup import AgentCgroup, DeviceTableBackend, DomainSpec
 from repro_torch.core.controller import ControllerConfig, resolve_device
+from repro_torch.core.daemon import AsyncDaemonBackend, DaemonError
 from repro_torch.core.events import Ev, EventLog
 from repro_torch.core.intent import Hint
 from repro_torch.core.progs import PolicyProgram
+from repro_torch.core.sharded import ShardedTableBackend
 from repro_torch.models import model as M
 from repro_torch.serving.kvcache import PageAccountant, SlotCaches
 from repro_torch.serving.sampling import sample
 from repro_torch.serving.session import Session, SState
-
-_NOT_PORTED = {
-    "async": "backend='async' (the async lifecycle daemon) is not ported "
-             "yet: ROADMAP Queue 1 item 4",
-    "sharded": "backend='sharded' (the sharded table) is not ported yet: "
-               "ROADMAP Queue 1 item 6",
-}
 
 
 @dataclass(frozen=True)
 class EngineConfig:
     max_slots: int = 8
     s_max: int = 512
-    pool_pages: int = 256                # KV pool
+    pool_pages: int = 256                # KV pool per device group
     page_tokens: int = 16
     mode: str = "inkernel"               # inkernel | userspace | nolimit
-    backend: str = "device"              # device (async, sharded: later)
+    backend: str = "device"              # device | sharded | async
+    async_inner: str = "device"          # async: the wrapped backend
+    n_shards: Optional[int] = None       # sharded: device-group count (1)
     ctrl: ControllerConfig = ControllerConfig(step_ms=10.0)
     # 0 samples greedily, as the reference does; ``report()`` is
     # field-identical to the JAX engine's at temperature 0 only (above
@@ -100,6 +104,7 @@ class EngineMetrics:
     n_freezes: int = 0
     n_thaws: int = 0
     n_evictions: int = 0
+    n_rebuilds: int = 0                  # poisoned-daemon backend rebuilds
     steps: int = 0
 
 
@@ -107,10 +112,10 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, *,
                  ecfg: EngineConfig = EngineConfig(), seed: int = 0,
                  device="cuda"):
-        if ecfg.backend in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[ecfg.backend])
-        if ecfg.backend != "device":
-            raise ValueError(f"unknown backend {ecfg.backend!r}")
+        if ecfg.backend not in ("device", "sharded", "async") or \
+                ecfg.async_inner not in ("device", "sharded"):
+            raise ValueError(f"unknown backend {ecfg.backend!r} "
+                             f"(async_inner {ecfg.async_inner!r})")
         if ecfg.mode not in ("inkernel", "userspace", "nolimit"):
             raise ValueError(f"unknown mode {ecfg.mode!r}")
         self.device = resolve_device(device)
@@ -120,9 +125,14 @@ class Engine:
         self.caches = SlotCaches(cfg, ecfg.max_slots, ecfg.s_max,
                                  self.device)
         self.accountant = PageAccountant(ecfg.page_tokens)
-        self.cg = AgentCgroup(DeviceTableBackend(
-            ecfg.pool_pages, n_domains=4 * ecfg.max_slots + 8, cfg=ecfg.ctrl,
-            device=self.device))
+        be = self._make_inner()
+        if ecfg.backend == "async":
+            # lifecycle off the hot path: mkdir/rmdir/write/freeze/thaw/
+            # lease ops run on the daemon thread in FIFO epochs, applied
+            # at the flush() in step(); the step's enforcement goes
+            # through the INNER backend's device view
+            be = AsyncDaemonBackend(be)
+        self.cg = AgentCgroup(be)
         # the engine's facade clock counts steps (set_time(step_no)), not
         # ms: PSI windows converted from ms to steps via step_ms
         self.cg.pressure_clock(
@@ -132,7 +142,10 @@ class Engine:
         self._adaptive = (AdaptiveController(self.cg, ecfg.adaptive)
                           if ecfg.adaptive is not None else None)
         self._adaptive_epoch = None
-        self.pool_capacity = ecfg.pool_pages
+        # pool_pages is per device group: each shard root is capped at
+        # pool_pages in-step, so the aggregate the daemon reasons about
+        # (root_usage sums every group) is pool_pages * n_shards
+        self.pool_capacity = ecfg.pool_pages * getattr(be, "n_shards", 1)
         self._view = self.cg.device_view()
         self.log = EventLog()
         self.metrics = EngineMetrics()
@@ -148,6 +161,21 @@ class Engine:
         self._lease: dict[str, object] = {}      # sid -> open tool Lease
         self._tool_seq = 0
         self._prev_throttle = np.zeros(self.cg.backend.n_domains, np.int64)
+        # ordered attach history (scope -> program, same-scope replaces in
+        # place) so a backend rebuild replays the exact registry slots
+        self._attachments: list = []
+        self._last_snapshot: Optional[dict] = None
+
+    def _make_inner(self):
+        e = self.ecfg
+        n_domains = 4 * e.max_slots + 8
+        inner_kind = e.async_inner if e.backend == "async" else e.backend
+        if inner_kind == "sharded":
+            return ShardedTableBackend(e.pool_pages, n_domains=n_domains,
+                                       cfg=e.ctrl, n_shards=e.n_shards,
+                                       device=self.device)
+        return DeviceTableBackend(e.pool_pages, n_domains=n_domains,
+                                  cfg=e.ctrl, device=self.device)
 
     # ---------------------------------------------------- policy programs
 
@@ -155,6 +183,15 @@ class Engine:
         """Swap or compose in-step enforcement programs (BPF object
         load): the next step runs the new decision code.  A root attach
         replaces the whole registry; a subtree attach composes."""
+        if path == "/":
+            self._attachments = [("/", prog)]
+        else:
+            for i, (p, _) in enumerate(self._attachments):
+                if p == path:
+                    self._attachments[i] = (path, prog)
+                    break
+            else:
+                self._attachments.append((path, prog))
         self.cg.attach(path, prog)
         self._view = self.cg.device_view()
 
@@ -273,6 +310,9 @@ class Engine:
     def _daemon(self) -> None:
         e = self.ecfg
         snap = self.cg.snapshot()
+        # last known-good step-boundary snapshot: the rebuild-from-
+        # snapshot path (poisoned async daemon) restores from here
+        self._last_snapshot = snap
         root_usage = int(snap["root_usage"])
         self.metrics.root_usage.append(root_usage)
         self.metrics.overshoot_pages = max(
@@ -301,9 +341,9 @@ class Engine:
                         < e.thaw_threshold * self.pool_capacity):
                     self._thaw(cand)
         if self._adaptive is not None:
-            # closed loop: poll every step boundary (an async backend
-            # would poll once per applied epoch; the synchronous device
-            # table has none, so ``epoch`` is always None here)
+            # closed loop: poll every step boundary for synchronous
+            # backends; for the async daemon, once per applied epoch:
+            # pressure reads observe the state the flush just settled
             epoch = snap.get("epoch")
             if epoch is None or epoch != self._adaptive_epoch:
                 self._adaptive_epoch = epoch
@@ -363,6 +403,74 @@ class Engine:
         self.metrics.n_evictions += 1
         self.log.emit(self.step_no, Ev.EVICT, s.domain)
 
+    # ------------------------------------------------- daemon-fault recovery
+
+    def _rebuild_backend(self) -> None:
+        """Survive a poisoned/wedged async daemon: drop the backend,
+        stand up a fresh one from the last step-boundary ``snapshot()``,
+        and reconcile anything newer than the snapshot from the engine's
+        session state (which is authoritative)."""
+        try:
+            self.cg.backend.close(flush=False)
+        except DaemonError:              # already poisoned
+            pass
+        inner = self._make_inner()
+        for path, prog in self._attachments:
+            inner.attach(path, prog)
+        if self._last_snapshot is not None:
+            inner.restore(self._last_snapshot)
+        be = inner
+        if self.ecfg.backend == "async":
+            be = AsyncDaemonBackend(inner)
+        self.cg.backend = be
+        self.cg.set_time(self.step_no)
+        self._reconcile_sessions()
+        self._view = self.cg.device_view()
+        self._prev_throttle = self._view.state["throttle_until"].reshape(
+            -1).cpu().numpy().astype(np.int64)
+        self.metrics.n_rebuilds += 1
+        self.log.emit(self.step_no, Ev.REBUILD, "/")
+
+    def _reconcile_sessions(self) -> None:
+        """The snapshot is up to one step-boundary stale: admissions,
+        freeze/thaw flips and charge drift since it was taken exist only
+        in the Session objects; re-apply them to the rebuilt tree."""
+        e = self.ecfg
+        for s in self.sessions.values():
+            if s.state in (SState.DONE, SState.EVICTED):
+                continue
+            tenant_path = f"/{s.tenant}"
+            if not self.cg.exists(tenant_path):
+                self.cg.mkdir(tenant_path)
+            if s.state is SState.WAITING:
+                continue
+            if not self.cg.exists(s.domain):
+                low = e.pool_pages if s.priority == D.HIGH else 0
+                high = (e.session_high or {}).get(s.sid, D.UNLIMITED)
+                self.cg.mkdir(s.domain, DomainSpec(
+                    priority=s.priority, low=low, high=high))
+            lease = self._lease.get(s.sid)
+            if lease is not None and not self.cg.exists(lease.path):
+                # the lease postdates the snapshot: drop it rather than
+                # resurrect it; the next burst step re-declares
+                self._lease.pop(s.sid)
+                self.cg.intent._open.pop(lease.path, None)
+                lease.closed = True
+                lease = None
+            path = lease.path if lease is not None else s.domain
+            s.dom_idx = self.cg.handle(path)
+            frozen = bool(self.cg.read(s.domain, "cgroup.freeze"))
+            if s.state is SState.FROZEN and not frozen:
+                self.cg.freeze(s.domain)
+            elif s.state is not SState.FROZEN and frozen:
+                self.cg.thaw(s.domain)
+            want = 0 if s.state is SState.FROZEN else s.pages
+            have = self.cg.usage(s.domain)
+            if want > have:
+                self.cg.charge_unchecked(path, want - have)
+            elif have > want:
+                self.cg.uncharge(path, have - want)
+
     # ----------------------------------------------------------------- step
 
     def _device_step(self, tokens, lengths, dom, amt, host_gate, inkernel):
@@ -411,7 +519,17 @@ class Engine:
 
     def step(self) -> None:
         e = self.ecfg
-        self.cg.set_time(self.step_no)
+        # epoch boundary: queued lifecycle ops (async backend) apply
+        # here, before the step reads the control state, never between
+        # the state read and the post-step commit.  A wedged/poisoned
+        # daemon surfaces here as DaemonError; the engine rebuilds the
+        # backend from the last step-boundary snapshot and the step
+        # proceeds on the fresh control plane.
+        try:
+            self.cg.set_time(self.step_no)
+            self.cg.flush()
+        except DaemonError:
+            self._rebuild_backend()
         if e.mode == "userspace":
             self._userspace_policy()
             self._apply_pending_gate()
@@ -438,7 +556,8 @@ class Engine:
         granted = granted.cpu().numpy()
         amt = inputs[3]
         # throttle-trigger accounting (memcg_bpf_ops delay counter)
-        tu = self._view.state["throttle_until"].cpu().numpy().astype(np.int64)
+        tu = self._view.state["throttle_until"].reshape(-1).cpu().numpy(
+        ).astype(np.int64)
         self.metrics.throttle_triggers += int(np.sum(tu > self._prev_throttle))
         self._prev_throttle = np.maximum(tu, self._prev_throttle)
 
@@ -492,6 +611,13 @@ class Engine:
         self._daemon()
         self.step_no += 1
         self.metrics.steps = self.step_no
+
+    def close(self) -> None:
+        """Release backend resources: stops the async lifecycle daemon
+        thread (a no-op for the synchronous backends)."""
+        fn = getattr(self.cg.backend, "close", None)
+        if fn is not None:
+            fn()
 
     def run(self, max_steps: Optional[int] = None) -> EngineMetrics:
         limit = max_steps or self.ecfg.max_steps

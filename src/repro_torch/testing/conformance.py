@@ -51,12 +51,11 @@ backends are compared at an epoch boundary — their bit-exactness
 contract.
 
 Port of ``repro/testing/conformance.py``: the same scenarios and
-observation streams.  The ``host`` and ``device`` kinds are certified
-here; ``device`` builds its table on the card unless the factory is
-given ``device="cpu"``.  The sharded backend and the async daemon (and
-the fault injector around them) wait for later slices: their kinds and
-``faulty_backend_factory`` raise ``NotImplementedError`` naming their
-ROADMAP Queue 1 items.
+observation streams, over all six backend kinds (``host``, ``device``,
+``sharded`` and the ``async-*`` daemon around each) and the
+fault-injecting ``faulty_backend_factory``.  The device-state kinds
+build their tables on the card unless the factory is given
+``device="cpu"``; the sharded kinds take ``n_shards`` (default 1).
 """
 from __future__ import annotations
 
@@ -66,9 +65,12 @@ from typing import Callable, Optional, Sequence
 from repro_torch.core import domains as D
 from repro_torch.core.cgroup import (AgentCgroup, DeviceTableBackend,
                                      DomainSpec, HostTreeBackend)
+from repro_torch.core.daemon import AsyncDaemonBackend
 from repro_torch.core.events import Ev
+from repro_torch.core.faults import FaultyBackend
 from repro_torch.core.intent import Hint
 from repro_torch.core.progs import GraduatedThrottleProgram, TokenBucketProgram
+from repro_torch.core.sharded import ShardedTableBackend
 
 __all__ = ["Scenario", "ConformanceSuite", "ConformanceReport",
            "ScenarioResult", "OpRecorder", "replay", "get_scenario",
@@ -607,39 +609,62 @@ BACKEND_KINDS = ("host", "device", "sharded",
 
 
 def standard_backend_factory(kind: str, *, device="cuda",
-                             n_domains: Optional[int] = None) -> Callable:
-    """``kind -> (capacity, n_domains) -> Backend`` for the ported
-    backend families.  ``device`` places the ``device`` kind's table
-    (the card unless ``"cpu"`` is given); ``n_domains`` overrides the
-    scenarios' table size (the same answers must come back at any
-    size)."""
+                             n_domains: Optional[int] = None,
+                             n_shards: int = 1) -> Callable:
+    """``kind -> (capacity, n_domains) -> Backend`` for the repo's four
+    backend families (``async-*`` wraps the named inner backend).
+    ``device`` places the device-state kinds' tables (the card unless
+    ``"cpu"`` is given); ``n_domains`` overrides the scenarios' table
+    size, per shard for the sharded kinds (the same answers must come
+    back at any size); ``n_shards`` is the sharded kinds' shard count."""
     if kind not in BACKEND_KINDS:
         raise ValueError(f"unknown backend kind {kind!r}")
-    missing = [item for part, item in (("sharded", "item 6"),
-                                       ("async", "item 4")) if part in kind]
-    if missing:
-        raise NotImplementedError(
-            f"backend kind {kind!r} is not ported yet: ROADMAP Queue 1 "
-            + " and ".join(missing))
 
     def make(capacity: int, n: int):
         if kind == "host":
             return HostTreeBackend(capacity)
-        return DeviceTableBackend(capacity, n_domains=n_domains or n,
-                                  device=device)
+        if kind == "device":
+            return DeviceTableBackend(capacity, n_domains=n_domains or n,
+                                      device=device)
+        if kind == "sharded":
+            return ShardedTableBackend(capacity, n_domains=n_domains or n,
+                                       n_shards=n_shards, device=device)
+        inner = standard_backend_factory(
+            kind[len("async-"):], device=device, n_domains=n_domains,
+            n_shards=n_shards)(capacity, n)
+        return AsyncDaemonBackend(inner)
 
     make.kind = kind
     return make
 
 
 def faulty_backend_factory(kind: str, plan=None, *, auto_retry: int = 0,
-                           on_spurious_kill: Optional[Callable] = None
-                           ) -> Callable:
-    """``FaultyBackend``-wrapped variant of a standard backend kind (not
-    ported yet)."""
-    raise NotImplementedError(
-        f"faulty-{kind}: the fault injector is not ported yet: ROADMAP "
-        "Queue 1 item 4")
+                           on_spurious_kill: Optional[Callable] = None,
+                           device="cuda", n_domains: Optional[int] = None,
+                           n_shards: int = 1) -> Callable:
+    """``FaultyBackend``-wrapped variant of a standard backend kind.
+    The wrapper sits directly around the synchronous inner backend, so
+    for ``async-*`` kinds injected faults fire on the daemon thread (a
+    wedge there poisons the daemon, the realistic failure mode).  With
+    the default fault-free plan the factory must pass the conformance
+    suite bit-exact.  ``device``, ``n_domains`` and ``n_shards`` as for
+    ``standard_backend_factory``."""
+    if kind not in BACKEND_KINDS:
+        raise ValueError(f"unknown backend kind {kind!r}")
+    inner_kind = kind[len("async-"):] if kind.startswith("async-") else kind
+    inner = standard_backend_factory(inner_kind, device=device,
+                                     n_domains=n_domains, n_shards=n_shards)
+
+    def make(capacity: int, n: int):
+        faulty = FaultyBackend(inner(capacity, n), plan,
+                               auto_retry=auto_retry,
+                               on_spurious_kill=on_spurious_kill)
+        if kind.startswith("async-"):
+            return AsyncDaemonBackend(faulty)
+        return faulty
+
+    make.kind = f"faulty-{kind}"
+    return make
 
 
 def backend_features(kind: str) -> frozenset:

@@ -1,16 +1,18 @@
 """The port's conformance kit and host-tree backend against the JAX
 package's.
 
-* Every standard scenario passes on the port's ``host`` and ``device``
-  (CPU) kinds against the port's host tree, and at 4,104 domains.
+* Every standard scenario passes on all six of the port's backend kinds
+  (the device-state kinds on the CPU; the sharded ones at 1 and 4
+  shards) against the port's host tree, and on ``device`` at 4,104
+  domains; the fault-injecting factories with the fault-free plan, and
+  with a transient-only plan under auto-retry, give each kind's
+  synchronous inner backend's stream.
 * Each scenario's observation stream on the port's host tree equals the
   JAX kit's host stream (enum kinds by name, numbers exactly), and the
   port's device-table stream equals the JAX kit's device stream.
 * The host tree's millisecond-clock decision (``step=None``, f32 clock
   and throttle windows) gives the tickets the reference's jitted
   decision gives, bit for bit, over randomized charges.
-* The kinds and factories not ported yet raise, naming their ROADMAP
-  items.
 """
 import numpy as np
 import pytest
@@ -36,20 +38,70 @@ def test_scenarios_are_the_references():
         assert sorted(t.programs) == sorted(j.programs)
 
 
-@pytest.mark.parametrize("kind,n_domains", [("host", None),
-                                            ("device", None),
-                                            ("device", 4104)])
+def _kind(spec: str) -> tuple:
+    """``"kind"`` or ``"kind:S"`` (a sharded kind at S shards)."""
+    kind, _, shards = spec.partition(":")
+    return kind, int(shards or 1)
+
+
+@pytest.mark.parametrize("kind,n_domains", [
+    ("host", None), ("device", None), ("device", 4104), ("sharded", None),
+    ("sharded:4", None), ("async-host", None), ("async-device", None),
+    ("async-sharded", None), ("async-sharded:4", None)])
 def test_suite_passes(kind, n_domains):
     """The port's own suite: each kind against the port's host tree, the
     device table at the scenarios' size and at the enforcement bench's
-    4,104 domains."""
+    4,104 domains, the sharded kinds at 1 and 4 shards."""
+    kind, n_shards = _kind(kind)
     suite = TK.ConformanceSuite()
-    report = suite.run(TK.standard_backend_factory(kind, device="cpu",
-                                                   n_domains=n_domains),
-                       features=TK.backend_features(kind))
+    report = suite.run(TK.standard_backend_factory(
+        kind, device="cpu", n_domains=n_domains, n_shards=n_shards),
+        features=TK.backend_features(kind))
     assert report.ok, report.summary()
     skipped = [r.name for r in report.results if r.skipped]
-    assert skipped == ([] if kind == "host" else ["memcg_events"])
+    assert skipped == ([] if kind.endswith("host") else ["memcg_events"])
+
+
+FAULT_PLANS = {
+    "fault_free": (None, 0),
+    "transient_retry": (dict(seed=7, p_transient=0.5), 1),
+}
+
+
+@pytest.mark.parametrize("plan", sorted(FAULT_PLANS))
+@pytest.mark.parametrize("kind", list(TK.BACKEND_KINDS) + ["sharded:4",
+                                                           "async-sharded:4"])
+def test_faulty_factory_matches_inner_backend(kind, plan):
+    """``faulty_backend_factory`` with the fault-free plan (the suite
+    passes), and with a transient-only plan under ``auto_retry=1`` (every
+    transient fires before its op and the retry applies it once): every
+    scenario's stream equals the synchronous inner backend's, which
+    ``test_suite_passes`` certifies."""
+    from repro_torch.core.faults import FaultPlan
+    kind, n_shards = _kind(kind)
+    kw, retry = FAULT_PLANS[plan]
+    faulty = TK.faulty_backend_factory(
+        kind, FaultPlan(**kw) if kw else None, auto_retry=retry,
+        device="cpu", n_shards=n_shards)
+    inner = TK.standard_backend_factory(
+        kind.removeprefix("async-"), device="cpu", n_shards=n_shards)
+    if plan == "fault_free":
+        report = TK.ConformanceSuite().run(
+            faulty, features=TK.backend_features(kind))
+        assert report.ok, report.summary()
+    for sc in TK.STANDARD_SCENARIOS:
+        if not sc.requires <= TK.backend_features(kind):
+            continue
+        streams = []
+        for make in (faulty, inner):
+            be = make(sc.capacity, sc.n_domains)
+            try:
+                streams.append(TK.replay(TC.AgentCgroup(be), sc))
+            finally:
+                close = getattr(be, "close", None)
+                if close is not None:
+                    close()
+        assert streams[0] == streams[1], sc.name
 
 
 def by_name(obs):
@@ -123,25 +175,25 @@ def test_ms_clock_decisions_bit_exact(prog):
     assert cgs[0].log.count(Ev.THROTTLE) > 0
 
 
-@pytest.mark.parametrize("kind,item", [
-    ("sharded", "item 6"), ("async-host", "item 4"),
-    ("async-device", "item 4"), ("async-sharded", "item 6"),
-])
-def test_unported_kinds_raise(kind, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TK.standard_backend_factory(kind)
-
-
-def test_faulty_factory_raises():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TK.faulty_backend_factory("host")
-
-
 def test_device_kind_defaults_to_the_card():
     import torch
     make = TK.standard_backend_factory("device")
     if torch.cuda.is_available():
         assert make(100, 8).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(100, 8)
+
+
+@pytest.mark.parametrize("kind", ["sharded", "async-device",
+                                  "async-sharded"])
+def test_device_state_kinds_default_to_the_card(kind):
+    import torch
+    make = TK.standard_backend_factory(kind)
+    if torch.cuda.is_available():
+        be = make(100, 8)
+        assert getattr(be, "inner", be).device.type == "cuda"
+        getattr(be, "close", lambda: None)()
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(100, 8)

@@ -4,7 +4,8 @@ kernels take, the decode kernel's edge lengths and its one launch a
 call, the paged decode's page sizes and unequal k/v widths, the
 SSD scan's chunk, state and head widths, and every stock enforcement
 program over random tables and the engine-shaped ones of
-``kernels/enforcement_bench.py`` up to n 20,008.  Marked ``cuda``:
+``kernels/enforcement_bench.py`` up to n 20,008, with and without the
+sharded backend's leading shard axis.  Marked ``cuda``:
 without a
 card these tests skip.  On the card (no JAX there, so skip the JAX
 conftest):
@@ -288,6 +289,54 @@ def test_charge_is_one_kernel_and_one_allocation(dev):
         after = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
         assert after - before == 1, name
         assert _graph_nodes(call) == [0], name
+
+
+@pytest.mark.parametrize("shards", [1, 8])
+@pytest.mark.parametrize("shape", list(EB.SHARD_SHAPES))
+def test_shard_axis_charge_and_gate_bit_exact(dev, shape, shards):
+    """The shard axis over the bench's shard shapes (and their first
+    shard alone, S 1 with the axis), three steps feeding forward: the
+    charge and the gate bit-exact against the plain per-shard loop, and
+    each call one launch on the counters."""
+    st, dom, amt, step, progs = EB.shard_case(shape, dev, shards)
+    st = {k: v[:shards].contiguous() for k, v in st.items()}
+    dom = dom[:shards].contiguous()
+    for _ in range(3):
+        before = (K.fused_charge_batch.launches, K.fused_slot_gate.launches)
+        got = K.fused_charge_batch(st, dom, amt, step, progs)
+        gate = K.fused_slot_gate(got[0], dom, step + 1, progs)
+        assert (K.fused_charge_batch.launches - before[0],
+                K.fused_slot_gate.launches - before[1]) == (1, 1)
+        want = C._plain_charge_shards(st, dom, amt, step, progs)
+        torch.cuda.synchronize()
+        assert got[1].shape == (shards, dom.shape[1])
+        assert _same_charge(got, want)
+        assert torch.equal(gate, C._plain_gate_shards(got[0], dom, step + 1,
+                                                      progs))
+        st = dict(st, **{k: got[0][k] for k in EB.STATE_KEYS})
+        step += 1
+
+
+def test_shard_axis_is_one_kernel_and_s1_the_device_call(dev):
+    """At any S a charge and a gate are one kernel node; at S 1 the call
+    with the axis gives the call without it, bit for bit."""
+    st, dom, amt, step, progs = EB.shard_case("groups", dev)
+    for call in (lambda: K.fused_charge_batch(st, dom, amt, step, progs),
+                 lambda: K.fused_slot_gate(st, dom, step, progs)):
+        call()
+        torch.cuda.synchronize()
+        assert _graph_nodes(call) == [0]
+    one = {k: v[0] for k, v in st.items()}
+    flat = K.fused_charge_batch(one, dom[0], amt, step, progs)
+    axis = K.fused_charge_batch({k: v[:1] for k, v in st.items()},
+                                dom[:1], amt, step, progs)
+    assert EB.same_tables(flat[0], {k: v[0] for k, v in axis[0].items()
+                                    if k in EB.STATE_KEYS})
+    assert torch.equal(flat[1], axis[1][0]) and torch.equal(flat[2],
+                                                            axis[2][0])
+    assert torch.equal(K.fused_slot_gate(one, dom[0], step, progs),
+                       K.fused_slot_gate({k: v[:1] for k, v in st.items()},
+                                         dom[:1], step, progs)[0])
 
 
 def test_enforcement_refuses_what_it_cannot_take(dev):

@@ -3,10 +3,11 @@
 JAX weights carried over, in ``inkernel`` mode (with per-session
 ``memory.high``), in ``userspace`` mode, in ``nolimit`` mode, and in
 ``inkernel`` mode under the weighted step scheduler (``sched_slots``);
-and sessions derived from generated traces through
-``session_from_trace``.  ``Engine.report()`` follows session phases, not
-token values, and must be field-identical.  The JAX reports are computed
-once per module."""
+sessions derived from generated traces through ``session_from_trace``;
+and the control planes beside the device table: the async lifecycle
+daemon (with a poisoned daemon rebuilt mid-run) and the sharded table.
+``Engine.report()`` follows session phases, not token values, and must
+be field-identical.  The JAX reports are computed once per module."""
 import dataclasses
 
 import jax
@@ -26,6 +27,8 @@ from repro_torch.configs import reduced as t_reduced
 from repro_torch.core import domains as TD
 from repro_torch.core import sched as TSched
 from repro_torch.core.cgroup import DeviceTableBackend
+from repro_torch.core.daemon import AsyncDaemonBackend
+from repro_torch.core.events import Ev as TEv
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.models import model as TM
 from repro_torch.serving import session as TS
@@ -78,6 +81,17 @@ def trace_sessions(S, D, G):
             f"s{i}", "t", trace, priority=D.HIGH if i == 0 else D.LOW,
             tokens_per_mb=0.25, gen_per_call=8, max_phases=4))
     return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU engine runs many small matmuls, faster on one
+    thread than on many, and far faster where test workers share the
+    cores; the reports follow session phases, not token values."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 # a pool the trace sessions overrun: throttles, freezes and thaws act
@@ -181,15 +195,117 @@ def test_constructors_default_to_the_card(make):
         build()
 
 
-# The adaptive retuner is ported; what stays unported under item 4 is
-# the async daemon, which is also the epoch cadence an adaptive engine
-# would poll at there.
-@pytest.mark.parametrize("kw,item", [
-    (dict(backend="async"), "Queue 1 item 4"),
-    (dict(backend="sharded"), "Queue 1 item 6"),
-    (dict(backend="async", adaptive=object()), "Queue 1 item 4"),
-])
-def test_unported_options_raise(kw, item):
-    tcfg = t_reduced(t_get_config("llama3.2-3b"))
-    with pytest.raises(NotImplementedError, match=item):
-        TEngine(tcfg, {}, ecfg=TEngineConfig(**COMMON, **kw), device="cpu")
+# ---------------------------------------------- async daemon, sharded table
+
+
+INKERNEL = dict(COMMON, **MODES["inkernel"])
+POISON_AFTER = 40          # steps before the daemon is poisoned
+
+
+def _run_async(E, Cfg, cfg, params, S, D, poison: bool, **dev):
+    """The inkernel sessions with ``backend="async"``; with ``poison``
+    the daemon is poisoned between step 40 and 41, as the JAX engine
+    test does (``tests/test_engine.py``)."""
+    eng = E(cfg, params, ecfg=Cfg(**INKERNEL, backend="async"), seed=0,
+            **dev)
+    for s in sessions(S, D):
+        eng.submit(s)
+    if poison:
+        for _ in range(POISON_AFTER):
+            eng.step()
+        eng.cg.backend._wedged = True        # poison between steps
+    eng.run(6000)
+    return eng
+
+
+def _jax_async(tiny_llama, poison: bool) -> tuple:
+    cfg, params = tiny_llama
+    eng = _run_async(JEngine, JEngineConfig, cfg, params, JS, JD, poison)
+    out = (eng.report(), eng.metrics.n_rebuilds, eng.cg.usage("/"))
+    eng.close()
+    return out
+
+
+def test_async_report_field_identical(tiny_llama, torch_model):
+    """``backend="async"``: lifecycle ops in daemon epochs, the report
+    equal to the port's device-table run's and to the JAX async run's."""
+    tcfg, tparams = torch_model
+    eng = _run_async(TEngine, TEngineConfig, tcfg, tparams, TS, TD, False,
+                     device="cpu")
+    report = eng.report()
+    assert report == _run_inkernel(TEngine, TEngineConfig, tcfg, tparams,
+                                   sessions(TS, TD)).report()
+    assert report == _jax_async(tiny_llama, False)[0]
+    assert isinstance(eng.cg.backend, AsyncDaemonBackend)
+    assert eng.cg.backend.epoch > 0       # lifecycle really ran in epochs
+    assert eng.cg.usage("/") == 0
+    eng.close()
+    assert not eng.cg.backend._thread.is_alive()
+
+
+def test_poisoned_daemon_rebuild_field_identical(tiny_llama, torch_model):
+    """A daemon poisoned after step 40: the next step rebuilds the
+    backend from the last step-boundary snapshot and the run completes,
+    with the JAX engine's report, one rebuild, full survival and clean
+    accounting."""
+    tcfg, tparams = torch_model
+    eng = _run_async(TEngine, TEngineConfig, tcfg, tparams, TS, TD, True,
+                     device="cpu")
+    report = eng.report()
+    assert (report, eng.metrics.n_rebuilds, eng.cg.usage("/")) == \
+        _jax_async(tiny_llama, True)
+    assert eng.metrics.n_rebuilds == 1
+    assert report["survival"] == 1.0 and report["overshoot_pages"] == 0
+    assert eng.log.count(TEv.REBUILD) == 1
+    for s in eng.sessions.values():
+        assert s.length == len(s.prompt) + sum(
+            p.gen_tokens + p.append_tokens for p in s.phases), s.sid
+    eng.close()
+
+
+def _run_inkernel(E, Cfg, cfg, params, sess, **kw):
+    """The inkernel engine on ``sess`` (the device table unless ``kw``
+    names another backend)."""
+    eng = E(cfg, params, ecfg=Cfg(**INKERNEL, **kw), seed=0,
+            **({"device": "cpu"} if E is TEngine else {}))
+    for s in sess:
+        eng.submit(s)
+    eng.run(6000)
+    return eng
+
+
+def test_sharded_one_shard_report_field_identical(tiny_llama, torch_model):
+    """``backend="sharded"`` at one shard (the JAX package's shard count
+    on one device): the JAX sharded engine's report."""
+    cfg, params = tiny_llama
+    tcfg, tparams = torch_model
+    want = _run_inkernel(JEngine, JEngineConfig, cfg, params,
+                         sessions(JS, JD), backend="sharded").report()
+    eng = _run_inkernel(TEngine, TEngineConfig, tcfg, tparams,
+                        sessions(TS, TD), backend="sharded")
+    assert eng.report() == want
+    assert eng.cg.backend.placement() == {"/t": 0}
+    assert eng.cg.usage("/") == 0
+
+
+def two_tenant_sessions():
+    """The parity sessions with the LOW ones in a second tenant, so two
+    shards both serve."""
+    out = sessions(TS, TD)
+    for s in out[1:]:
+        s.tenant = "u"
+    return out
+
+
+def test_two_shards_hold_the_guarantees(torch_model):
+    """Two device groups, one tenant each: full survival, no pool
+    overshoot, throttles acting, clean accounting."""
+    tcfg, tparams = torch_model
+    eng = _run_inkernel(TEngine, TEngineConfig, tcfg, tparams,
+                        two_tenant_sessions(), backend="sharded", n_shards=2)
+    r = eng.report()
+    assert r["survival"] == 1.0 and r["overshoot_pages"] == 0
+    assert r["throttle_triggers"] > 0
+    assert eng.cg.usage("/") == 0
+    assert eng.cg.backend.placement() == {"/t": 0, "/u": 1}
+    assert eng.pool_capacity == 2 * COMMON["pool_pages"]

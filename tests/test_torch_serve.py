@@ -13,6 +13,7 @@ import io
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import adaptive as JA
 from repro.core import domains as JD
@@ -40,6 +41,18 @@ ADAPTIVE = {
     "acts": (dict(high_frac=0.01, low_frac=0.0, cooldown_ms=50.0,
                   watch=("/t/lo1", "/t/lo2")), True),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU engine runs many small matmuls, faster on one
+    thread than on many, and far faster where test workers share the
+    cores; the reports follow session phases, not token values."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 
 def sessions(S, D):
