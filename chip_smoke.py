@@ -32,11 +32,16 @@ Phases, one JSON line each on standard output:
                  ragged S_max, and in bf16 at S_max=32768 (123,787 live
                  keys), each bf16 call one kernel, timed cold (every call
                  on another cache set) by the profiler beside
-                 ``scaled_dot_product_attention``; the flash forward and
+                 ``scaled_dot_product_attention``; and in bf16 at every
+                 family's heads (G 1 at d 64, G 4 over 10 kv heads, G 5,
+                 G 6, Jamba's G 4), short and filled, timed the same way; the flash forward and
                  backward at the training shape (B=1, S=4096, H=24, Hkv=8,
                  d=128, bf16, causal), at a ragged S=1000, non-causal and
                  causal, f32 and bf16, at S=333 against Sk=1000 (f32 full,
-                 bf16 causal) and in bf16 at d 32, 64 and 80: every element
+                 bf16 causal), in bf16 at d 32, 64 and 80, and at each
+                 new family's heads at the training shape (minicpm H 36 /
+                 Hkv 36 d 64, phi3 40/10, maverick 40/8, internlm2 48/8
+                 at d 128; bf16, causal, timed beside their bounds): every element
                  of out, lse, dq, dk and dv within 2e-5 (1 + |b|) in f32
                  and 2e-2 (rms(b) + |b|) in bf16, and in bf16 within 1e-2
                  norm-relative, b being the plain version's value; the
@@ -58,7 +63,11 @@ Phases, one JSON line each on standard output:
                  decode logits within 1e-4, and the engine's ``report()``
                  identical in inkernel and userspace modes, under the
                  weighted step scheduler, and with the adaptive retuner
-                 acting (its retune actions identical too).
+                 acting (its retune actions identical too); then the
+                 reduced f32 Jamba, xLSTM (their Mamba and xLSTM leaves
+                 widened) and llama4-maverick the same way: decode
+                 logits within 1e-4, inkernel reports and greedy token
+                 streams identical.
   engine_full    the full-width llama3.2-3b (28 layers, bf16, random
                  weights from a seeded generator on the card) serving 8
                  agent sessions of 2 tenants in inkernel mode; every step
@@ -87,6 +96,18 @@ Phases, one JSON line each on standard output:
                  at least one freeze and one throttle trigger, no
                  overshoot, the launches the steps imply; step p50/p95 and
                  tokens/s.
+  families_full  ``launch.serve`` as serve_full on every other family at
+                 full width (bf16, seeded random weights): phi3-medium-
+                 14b, minicpm-2b, internlm2-20b and xlstm-350m at full
+                 depth, llama4-maverick cut to 2 layers and Jamba to 8
+                 (the cuts printed with their reason); each report equal
+                 to the same config's reduced CPU run, the gate read on
+                 the live table each step, one charge and one gate launch
+                 a step and a decode launch per attention layer a step;
+                 step p50/p95, tokens/s, peak memory; on Jamba and xLSTM,
+                 a slot the gate denies keeps its whole state bit for bit
+                 and a frozen-then-thawed slot's state comes back
+                 bit-identical on the card.
   control_full   the full-width llama3.2-3b serving through the other
                  control planes, each against the same run at reduced
                  width on the CPU: ``backend="async"`` on serve_full's
@@ -542,6 +563,60 @@ def check_decode(dev, seed: int) -> dict:
     out["times"] = time_decode(A.decode_attention, "dense", dev, DB.library)
     t = out["times"]["short"]
     out["timing"] = (t["device_ms"], plain, t["bound"], t["library_ms"])
+    out.update(check_decode_groups(dev, seed))
+    return out
+
+
+# the heads of each decoder family's attention layers at the engine's 8
+# slots: G = H / Hkv query heads a kv head are the live rows of the
+# kernel's 16-row mma tile
+DECODE_GROUPS = {
+    "minicpm_G1_d64": dict(B=8, H=36, hkv=36, d=64),
+    "phi3_G4_d128": dict(B=8, H=40, hkv=10, d=128),
+    "maverick_G5_d128": dict(B=8, H=40, hkv=8, d=128),
+    "internlm2_G6_d128": dict(B=8, H=48, hkv=8, d=128),
+    "jamba_G4_d128": dict(B=8, H=32, hkv=8, d=128),
+}
+
+
+def check_decode_groups(dev, seed: int) -> dict:
+    """The bf16 decode kernel at each family's heads (``DECODE_GROUPS``),
+    at the short contexts the engine serves and at caches filled to
+    ragged lengths up to S_max 2048: each case against the plain version
+    as ``decode_close`` says, then timed cold as ``time_decode`` does
+    (one kernel a call), beside its bound, the plain version (issue pace)
+    and ``scaled_dot_product_attention``."""
+    from repro_torch.kernels import decode_attention as A
+    from repro_torch.kernels import decode_bench as DB
+
+    out, times = {}, {}
+    for name, heads in DECODE_GROUPS.items():
+        times[name] = {}
+        for shape in ("short", "filled"):
+            sets = DB.cache_sets(shape, "dense", dev, seed, heads=heads)
+            args = sets[0]
+            r = decode_close(A.decode_attention(*args),
+                             A.decode_attention_plain(*args), args[-1])
+            if not r["ok"]:
+                raise AssertionError(f"decode attention {name} {shape}: {r}")
+            out[f"bf16_{name}_{shape}"] = r
+            calls = DB.SHAPES[shape]["calls"]
+            m = DB.measure(A.decode_attention, sets, calls)
+            if m["kernels_per_call"] != 1:
+                raise AssertionError(f"a bf16 decode call at {name} ran "
+                                     f"{m['kernels']}, not one kernel")
+            times[name][shape] = {
+                "ms": m["device_ms"], "issue_ms": m["issue_ms"],
+                "plain_ms": cuda_ms(
+                    lambda: A.decode_attention_plain(*args), 20),
+                "bound_ms": DB.bound(shape, False, heads)[0],
+                "library_ms": DB.measure(DB.library, sets,
+                                         calls)["device_ms"],
+                "max_abs_err": r["max_abs"],
+                "slot_norm_rel_err": r["slot_norm_rel"]}
+            del sets, args
+            torch.cuda.empty_cache()
+    out["group_times"] = times
     return out
 
 
@@ -658,6 +733,11 @@ def check_flash(dev, seed: int) -> dict:
     for d in (32, 64, 80):
         cases.append((f"head{d}_bf16_causal", torch.bfloat16, True,
                       dict(B=1, S=1000, H=8, hkv=2, d=d)))
+    # each new family's heads at the training shape
+    for name, heads in FLASH_GROUPS.items():
+        cases.append((f"group_{name}_bf16_causal", torch.bfloat16, True,
+                      dict(B=1, S=4096, **heads)))
+    family_times = {}
     for name, dtype, causal, shape in cases:
         q, k, v, do = _flash_inputs(g, dev, dtype, **shape)
         errs = _flash_errs(FA, R, q, k, v, do, causal)
@@ -665,6 +745,9 @@ def check_flash(dev, seed: int) -> dict:
             raise AssertionError(f"flash {name}: {errs} over "
                                  f"{ATTN_TOL[dtype]}")
         out[name] = errs
+        if name.startswith("group_"):
+            family_times[name] = _flash_times(FA, q, k, v, do, **shape)
+    out["family_times"] = family_times
     # the training shape: times against the bound and the library call
     B, S, H, hkv, d = (FLASH_TRAIN[k] for k in ("B", "S", "H", "hkv", "d"))
     q, k, v, do = _flash_inputs(g, dev, torch.bfloat16, **FLASH_TRAIN)
@@ -715,6 +798,33 @@ def check_flash(dev, seed: int) -> dict:
     out["bwd_tflops"] = 2.5 * fwd_ops / bwd_ms / 1e9
     out["library_max_abs_err"] = lib_err.item()
     return out
+
+
+# the new families' attention heads: minicpm (G 1, d 64), phi3 (G 4 over
+# 10 kv heads), maverick (G 5), internlm2 (G 6)
+FLASH_GROUPS = {
+    "minicpm_G1_d64": dict(H=36, hkv=36, d=64),
+    "phi3_G4_d128": dict(H=40, hkv=10, d=128),
+    "maverick_G5_d128": dict(H=40, hkv=8, d=128),
+    "internlm2_G6_d128": dict(H=48, hkv=8, d=128),
+}
+
+
+def _flash_times(FA, q, k, v, do, B, S, H, hkv, d) -> dict:
+    """The bf16 causal flash forward and backward's issue pace at one
+    shape, beside their bounds (``check_flash``'s counts)."""
+    o, lse = FA.flash_fwd(q, k, v, causal=True)
+    fwd_ops = 4 * B * H * S * S * d / 2
+    qkv_bytes = 2 * (B * S * H * d + 2 * B * S * hkv * d)
+    fwd_bytes = qkv_bytes + 2 * B * S * H * d + 4 * B * H * S
+    bwd_bytes = qkv_bytes + 2 * 2 * B * S * H * d + 4 * B * H * S + qkv_bytes
+    return {"fwd_ms": cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=True),
+                              5, 1),
+            "fwd_bound_ms": bound_ms(fwd_bytes, fwd_ops, torch.bfloat16)[0],
+            "bwd_ms": cuda_ms(lambda: FA.flash_bwd(q, k, v, o, lse, do,
+                                                   causal=True), 3, 1),
+            "bwd_bound_ms": bound_ms(bwd_bytes, 2.5 * fwd_ops,
+                                     torch.bfloat16)[0]}
 
 
 SSD_PATH = dict(b=1, s=32768, nh=8, dh=1024, N=16, chunk=256)
@@ -890,6 +1000,8 @@ def decode_row(res: dict) -> dict:
             "timing": res["timing"],
             "extra": {"max_slot_norm_rel_err":
                       max(e["slot_norm_rel"] for e in bf16),
+                      **({"group_shapes": res["group_times"]}
+                         if "group_times" in res else {}),
                       "issue_ms": times["short"]["issue_ms"], **{
                           f"{shape}_context": {
                               "ms": times[shape]["device_ms"],
@@ -1033,7 +1145,90 @@ def engine_parity(dev, seed: int) -> dict:
         raise AssertionError("the adaptive retuner never acted")
     reports["inkernel_adaptive"] = rg
     return {"logits_max_abs_err": logit_err, "reports": reports,
-            "adaptive_actions": len(acts[1])}
+            "adaptive_actions": len(acts[1]),
+            "families": family_parity(dev, seed)}
+
+
+# the decoder families the engine serves beside llama3.2-3b
+PARITY_FAMILIES = ("jamba-v0.1-52b", "xlstm-350m",
+                   "llama4-maverick-400b-a17b")
+# xLSTM leaves widened from the schema's scales, where a block moves the
+# residual stream by ~1e-7 (tests/test_torch_families.py::lively)
+LIVELY_XLSTM = ("up", "conv_w", "wq", "wk", "wv", "w_i", "w_f", "down",
+                "w_z", "w_o", "r_i", "r_f", "r_z", "r_o")
+
+
+def lively_xlstm(cfg, params, seed: int) -> None:
+    """Widen the xLSTM leaves of ``params`` in place (CPU tensors)."""
+    g = torch.Generator().manual_seed(seed)
+    for pos, kind in zip(params["groups"], cfg.layer_kinds()):
+        if kind not in ("mlstm", "slstm"):
+            continue
+        mix = pos["mixer"]
+        for name in LIVELY_XLSTM:
+            if name in mix:
+                mix[name].mul_(5.0)
+        mix["b_i"].normal_(0.0, 1.0, generator=g)
+        mix["b_f"].normal_(1.0, 1.0, generator=g)
+
+
+def family_parity(dev, seed: int) -> dict:
+    """The reduced f32 Jamba, xLSTM and llama4-maverick (Jamba's Mamba and
+    xLSTM's leaves widened) on the CPU and on the card, from the same
+    weights: decode logits within 1e-4 with the same argmax over 4 steps,
+    then parity_sessions in inkernel mode: the same report and the same
+    greedy token streams."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import domains as D
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import session as S
+
+    out = {}
+    for arch in PARITY_FAMILIES:
+        cfg = dataclasses.replace(reduced(get_config(arch)),
+                                  dtype="float32")
+        params = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                               device="cpu")
+        (lively if "mamba" in cfg.layer_kinds() else lively_xlstm)(
+            cfg, params, seed)
+        gparams = to_device(params, dev)
+        rng = np.random.default_rng(seed)
+        states = {"cpu": M.decode_state(cfg, 4, 64, "cpu"),
+                  "cuda": M.decode_state(cfg, 4, 64, dev)}
+        lengths = np.array([0, 3, 17, 40], np.int32)
+        err = 0.0
+        for _ in range(4):
+            tokens = torch.from_numpy(rng.integers(0, cfg.vocab, 4).astype(
+                np.int32))
+            lc, _ = M.decode_step(cfg, params, states["cpu"], tokens,
+                                  torch.from_numpy(lengths))
+            lg, _ = M.decode_step(cfg, gparams, states["cuda"], tokens.to(dev),
+                                  torch.from_numpy(lengths).to(dev))
+            err = max(err, (lg.cpu() - lc).abs().max().item())
+            if not torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)):
+                raise AssertionError(f"{arch}: decode argmax differs")
+            lengths = lengths + 1
+        if not err <= 1e-4:
+            raise AssertionError(f"{arch}: decode logits differ by {err}")
+        ecfg = E.EngineConfig(max_slots=4, s_max=384, pool_pages=40,
+                              page_tokens=16, mode="inkernel",
+                              use_freeze=True,
+                              session_high={"lo1": 12, "lo2": 12})
+        runs = [run_engine(E, cfg, p, parity_sessions(S, D), ecfg, d)
+                for p, d in ((params, "cpu"), (gparams, dev))]
+        (rc, rg), (sc, sg) = ([r.report() for r in runs],
+                              [{sid: x.out_tokens for sid, x in
+                                r.sessions.items()} for r in runs])
+        if rc != rg:
+            raise AssertionError(f"{arch} reports differ:\n{rc}\n{rg}")
+        if sc != sg:
+            raise AssertionError(f"{arch}: greedy token streams differ")
+        if rg["freezes"] < 1 or rg["thaws"] < 1:
+            raise AssertionError(f"{arch}: no freeze and thaw: {rg}")
+        out[arch] = {"logits_max_abs_err": err, "report": rg,
+                     "tokens": sum(len(t) for t in sg.values())}
+    return out
 
 
 def engine_full(dev, seed: int) -> dict:
@@ -1643,6 +1838,24 @@ SERVE_FULL = ["--arch", "llama3.2-3b", "--mode", "inkernel",
               "--session-high", '{"s1": 8, "s3": 8, "s5": 8, "s7": 8}']
 
 
+def gate_check(dev, gated: list, what: str):
+    """An ``after_step`` hook: the gate read on the live table (may each
+    running slot advance next step?) against the host snapshot's chains,
+    the denied slots counted into ``gated[0]``."""
+    def check(eng):
+        view = eng.cg.device_view()
+        dom = [eng.sessions[sid].dom_idx if sid is not None else -1
+               for sid in eng.slot_session]
+        gate = view.gate(view.state, torch.tensor(dom, dtype=torch.int32,
+                                                  device=dev),
+                         eng.step_no).cpu().tolist()
+        gated[0] += sum(1 for x in gate if not x)
+        if gate != _host_gate(eng.cg.snapshot(), dom, eng.step_no):
+            raise AssertionError(f"{what}: gate disagrees with the table "
+                                 f"at step {eng.step_no}")
+    return check
+
+
 def serve_full(dev, seed: int) -> dict:
     """``repro_torch.launch.serve`` at full width on the card, checked
     against the same sessions at reduced width on the CPU; the gate is
@@ -1656,19 +1869,7 @@ def serve_full(dev, seed: int) -> dict:
             SERVE_FULL + ["--seed", str(seed), "--reduced", "--device",
                           "cpu"]))
     gated = [0]
-
-    def check_gate(eng):
-        view = eng.cg.device_view()
-        dom = [eng.sessions[sid].dom_idx if sid is not None else -1
-               for sid in eng.slot_session]
-        gate = view.gate(view.state, torch.tensor(dom, dtype=torch.int32,
-                                                  device=dev),
-                         eng.step_no).cpu().tolist()
-        gated[0] += sum(1 for x in gate if not x)
-        if gate != _host_gate(eng.cg.snapshot(), dom, eng.step_no):
-            raise AssertionError(f"gate disagrees with the table at step "
-                                 f"{eng.step_no}")
-
+    check_gate = gate_check(dev, gated, "serve_full")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
@@ -1705,6 +1906,157 @@ def serve_full(dev, seed: int) -> dict:
             "gated_slot_steps": gated[0], "launches": counts,
             "report": report,
             "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+# each family's depth on one card (0: the config's own) and why it is cut
+FAMILIES_FULL = {
+    "phi3-medium-14b": (0, None),
+    "minicpm-2b": (0, None),
+    "internlm2-20b": (0, None),
+    "llama4-maverick-400b-a17b": (
+        2, "48 -> 2 layers: one dense + MoE group; the 128-expert MoE "
+           "layer alone holds ~16.1 B parameters (~32 GB in bf16)"),
+    "jamba-v0.1-52b": (
+        8, "32 -> 8 layers: one 8-layer group, as prefill_full; the "
+           "51.4 B parameters are ~103 GB in bf16"),
+    "xlstm-350m": (0, None),
+}
+
+
+def _slot_leaves(state, slot):
+    return [t[:, slot].clone() for pos in state for t in pos.values()]
+
+
+def check_recurrent_slots(eng, dev, seed: int) -> dict:
+    """On the card, with every state leaf filled from a seeded draw: a
+    step whose gate denies slot 0 and grants slot 1 leaves slot 0's whole
+    state bit-identical and moves every recurrent leaf of slot 1; a slot
+    frozen to host memory and thawed into another comes back
+    bit-identical.  Runs after a served run (its launches not counted)."""
+    caches, m = eng.caches, eng.ecfg.max_slots
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for pos in caches.state:
+        for t in pos.values():
+            t.copy_(torch.randn(t.shape, generator=g, device=dev).to(t.dtype))
+    kinds = [k for k, pos in zip(eng.cfg.layer_kinds(), caches.state)
+             for _ in pos]
+    before = [_slot_leaves(caches.state, b) for b in (0, 1)]
+    i32 = dict(dtype=torch.int32, device=dev)
+    dom = torch.full((m,), -1, **i32)
+    dom[1] = eng.cg.handle("/")
+    gate = torch.zeros(m, dtype=torch.bool, device=dev)
+    gate[1] = True
+    _, _, granted, _ = eng._device_step(
+        torch.arange(m, **i32), torch.full((m,), 5, **i32), dom,
+        torch.zeros(m, **i32), gate, False)
+    torch.cuda.synchronize()
+    if granted.cpu().tolist() != gate.cpu().tolist():
+        raise AssertionError(f"gate {granted.tolist()}")
+    kept = all(torch.equal(a, b) for a, b in
+               zip(before[0], _slot_leaves(caches.state, 0)))
+    moved = [not torch.equal(a, b) for a, b, k in
+             zip(before[1], _slot_leaves(caches.state, 1), kinds)
+             if k != "attn"]
+    if not kept or not moved or not all(moved):
+        raise AssertionError(f"denied slot kept {kept}, granted moved "
+                             f"{moved}")
+    free = [caches.alloc_slot() for _ in range(caches.n_free)]
+    want = _slot_leaves(caches.state, free[-1])
+    for slot in free[:-1]:
+        caches.free_slot(slot)
+    caches.freeze_slot("probe", free[-1], pages=0)
+    slot, _ = caches.thaw_slot("probe")
+    got = _slot_leaves(caches.state, slot)
+    thawed = slot != free[-1] and len(got) == len(want) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(want, got))
+    if not thawed:
+        raise AssertionError("a frozen-then-thawed slot's state differs")
+    caches.free_slot(slot)
+    return {"denied_slot_bit_identical": kept,
+            "granted_recurrent_leaves_moved": len(moved),
+            "freeze_thaw_bit_identical": thawed,
+            "thaw_slot": (free[-1], slot)}
+
+
+def families_full(dev, seed: int, served: dict = None) -> dict:
+    """``repro_torch.launch.serve`` on each family of ``FAMILIES_FULL`` at
+    full width (bf16, random weights from a seeded generator on the
+    card), over serve_full's 8 trace-derived sessions, slots, pool and
+    LOW ``memory.high``: each report equal to the same config's reduced
+    CPU run; the gate read on the live table after each step; one charge
+    and one gate launch a step and a decode launch per attention layer a
+    step.  On Jamba and xLSTM, ``check_recurrent_slots``.  Step p50/p95,
+    tokens/s and peak memory of each, beside serve_full's llama3.2-3b p50
+    of this call.  Each model is freed before the next is built."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as SV
+
+    out = {"cuts": {a: why for a, (_, why) in FAMILIES_FULL.items() if why},
+           "serve_full_llama3.2-3b_step_ms_p50":
+               served["step_ms_p50"] if served else None, "runs": {}}
+    for arch, (layers, _) in FAMILIES_FULL.items():
+        base = SERVE_FULL[2:] + ["--arch", arch, "--seed", str(seed)]
+        with contextlib.redirect_stdout(io.StringIO()):
+            ref = SV.run(SV.parser().parse_args(base + ["--reduced",
+                                                        "--device", "cpu"]))
+        args = SV.parser().parse_args(
+            base + (["--layers", str(layers)] if layers else []))
+        gated = [0]
+        check_gate = gate_check(dev, gated, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        eng, timing = SV.serve(args, after_step=check_gate)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        steps, report, cfg = eng.step_no, eng.report(), eng.cfg
+        full = get_config(arch)
+        attn = cfg.layer_kinds().count("attn") * cfg.n_groups
+        want = {k: 0 for k in counts}
+        want.update(fused_charge_batch=steps, fused_slot_gate=steps,
+                    decode_attention=attn * steps)
+        if counts != want:
+            raise AssertionError(f"{arch}: launches {counts}, expected "
+                                 f"{want}")
+        if not eng.done() or report != ref:
+            raise AssertionError(f"{arch}: full-width report differs from "
+                                 f"the reduced CPU run:\n{report}\n{ref}")
+        if report["freezes"] < 1 or report["throttle_triggers"] < 1 \
+                or report["overshoot_pages"]:
+            raise AssertionError(f"{arch}: enforcement did not act as "
+                                 f"planned: {report}")
+        if cfg.d_model != full.d_model or cfg.n_layers != (
+                layers or full.n_layers) or cfg.dtype != full.dtype:
+            raise AssertionError(f"{arch}: not the full width")
+        if not all(0 <= x < cfg.padded_vocab for x_s in eng.sessions.values()
+                   for x in x_s.out_tokens):
+            raise AssertionError(f"{arch}: sampled token out of the "
+                                 "vocabulary")
+        run = {"layers": cfg.n_layers, "of_layers": full.n_layers,
+               "params": sum(t.numel() for t in tree_leaves(eng.params)),
+               "steps": steps, "wall_s": wall,
+               "step_ms_p50": timing["step_ms_p50"],
+               "step_ms_p95": timing["step_ms_p95"],
+               "tokens_per_s": timing["tokens_per_s"],
+               "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "decode_launches": counts["decode_attention"],
+               "charge_launches": counts["fused_charge_batch"],
+               "gated_slot_steps": gated[0], "launches": counts,
+               "report_equals_serve_full": (served is not None
+                                            and report == served["report"])}
+        if any(k != "attn" for k in cfg.layer_kinds()):
+            run["recurrent"] = check_recurrent_slots(eng, dev, seed)
+        out["runs"][arch] = run
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 POISON_AFTER = 40        # steps before control_full poisons the daemon
@@ -1864,16 +2216,18 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernels,engine_parity,engine_full,conformance,"
-                            "replay,serve_full,control_full,train_parity,"
-                            "train_full,prefill_parity,prefill_full",
+                            "replay,serve_full,families_full,control_full,"
+                            "train_parity,train_full,prefill_parity,"
+                            "prefill_full",
                     help="comma-separated phases to run, of kernels, "
                          "engine_parity, engine_full, conformance, replay, "
-                         "serve_full, control_full, train_parity, "
-                         "train_full, prefill_parity, prefill_full, and "
-                         "profile, train_profile and prefill_profile (not "
-                         "in the default run); the result line is printed "
-                         "only when kernels, engine_full, conformance, "
-                         "serve_full, control_full, train_full and "
+                         "serve_full, families_full, control_full, "
+                         "train_parity, train_full, prefill_parity, "
+                         "prefill_full, and profile, train_profile and "
+                         "prefill_profile (not in the default run); the "
+                         "result line is printed only when kernels, "
+                         "engine_full, conformance, serve_full, "
+                         "families_full, control_full, train_full and "
                          "prefill_full ran")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -1943,14 +2297,18 @@ def main() -> None:
                             ("flash_bwd", ("dq", "dk", "dv"))):
             errs = [e[k] for case, e in fla.items()
                     if case.startswith(("train", "ragged", "cross",
-                                        "head"))
+                                        "head", "group"))
                     for k in parts]
             rows[name] = dict(
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:92",
                 max_abs_err=max(e["max_abs"] for e in errs),
                 norm_rel_err=max(e["norm_rel"] for e in errs),
-                timing=fla["timing"][name])
+                timing=fla["timing"][name],
+                extra={"group_shapes": {
+                    case: {k: v for k, v in t.items()
+                           if k.startswith(name.split("_")[1])}
+                    for case, t in fla["family_times"].items()}})
         ssd_errs = [e[k] for case, e in ssd.items()
                     if case not in ("timing", "kernel_ms")
                     for k in ("y", "h")]
@@ -1977,6 +2335,10 @@ def main() -> None:
     if "serve_full" in phases:
         served = serve_full(dev, args.seed)
         emit({"phase": "serve_full", "card": card, **served})
+    fams = None
+    if "families_full" in phases:
+        fams = families_full(dev, args.seed, served)
+        emit({"phase": "families_full", "card": card, **fams})
     ctrl = None
     if "control_full" in phases:
         ctrl = control_full(dev, args.seed,
@@ -2006,7 +2368,7 @@ def main() -> None:
         emit({"phase": "prefill_profile", "card": card,
               **prefill_profile(dev, args.seed)})
     if rows is None or full is None or train is None or prefill is None \
-            or conf is None or served is None or ctrl is None:
+            or conf is None or served is None or ctrl is None or fams is None:
         return
     launches = dict(full["launches"], **train["launches"],
                     ssd_scan=prefill["launches_per_prefill"]["ssd_scan"])
@@ -2021,7 +2383,9 @@ def main() -> None:
                **{f"conformance_faulty_{k}": c["launches"]
                   for k, c in conf["faulty"].items()},
                **{f"control_full_{k}": c["launches"]
-                  for k, c in ctrl.items()}}
+                  for k, c in ctrl.items()},
+               **{f"families_full_{k}": c["launches"]
+                  for k, c in fams["runs"].items()}}
     # the forward's errors include those at the prefill shape
     fwd = rows["flash_fwd"]
     for e in prefill["flash_fwd_prefill_errs"].values():

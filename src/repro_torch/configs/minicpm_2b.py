@@ -1,0 +1,23 @@
+"""minicpm-2b [dense] — llama-like arch trained with the WSD schedule.
+40L d_model=2304 36H (GQA kv=36) d_ff=5760 vocab=122753
+[arXiv:2404.06395; hf].  vocab padded to 122880 for 16-way TP.
+
+Port of ``repro/configs/minicpm_2b.py`` (same values)."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minicpm-2b",
+    family="dense",
+    n_layers=40,
+    d_model=2304,
+    n_heads=36,
+    n_kv_heads=36,
+    d_ff=5760,
+    vocab=122753,
+    head_dim=64,
+    rope_theta=1e4,
+    tie_embeddings=True,
+    schedule="wsd",
+    group_size=1,
+    source="arXiv:2404.06395; hf",
+)

@@ -53,12 +53,13 @@ SHAPES = {
 }
 
 
-def bound(shape: str, paged: bool) -> tuple[float, str]:
-    """``timing.bound_ms`` of a bf16 call at ``shape``: each live K and V
-    row read once, q read and out written, the lengths and (paged) the
-    live table entries; 4 flops a live key, head and channel."""
+def bound(shape: str, paged: bool, heads: dict = HEADS) -> tuple[float, str]:
+    """``timing.bound_ms`` of a bf16 call at ``shape`` (with ``heads``
+    in place of engine_full's): each live K and V row read once, q read
+    and out written, the lengths and (paged) the live table entries; 4
+    flops a live key, head and channel."""
     lens = SHAPES[shape]["lengths"]
-    B, H, hkv, d = (HEADS[k] for k in ("B", "H", "hkv", "d"))
+    B, H, hkv, d = (heads[k] for k in ("B", "H", "hkv", "d"))
     n_bytes = 2 * sum(lens) * hkv * d * 2 + 2 * B * H * d * 2 + B * 4
     if paged:
         n_bytes += sum(-(-n // PAGE) for n in lens) * 4
@@ -66,12 +67,13 @@ def bound(shape: str, paged: bool) -> tuple[float, str]:
 
 
 def cache_sets(shape: str, layout: str, dev, seed: int = 0,
-               lengths=None) -> list:
+               lengths=None, heads: dict = HEADS) -> list:
     """The shape's ``sets`` argument tuples of one decode call, each with
     its own q and cache: (q, k, v, lengths) dense or (q, k_pages,
     v_pages, table, lengths) paged, bf16, from a seeded generator on the
-    card; ``lengths`` in place of the shape's own, if given."""
-    B, H, hkv, d = (HEADS[k] for k in ("B", "H", "hkv", "d"))
+    card; ``lengths`` and ``heads`` in place of the shape's own and
+    engine_full's, if given."""
+    B, H, hkv, d = (heads[k] for k in ("B", "H", "hkv", "d"))
     spec = SHAPES[shape]
     s_max = spec["s_max"]
     g = torch.Generator(device=dev).manual_seed(seed)

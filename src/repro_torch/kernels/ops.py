@@ -5,6 +5,10 @@ TPU, blockwise elsewhere).  The port has one entry per op whose kernel
 wrapper decides by the tensors' device: the hand-written CUDA kernel for
 CUDA tensors, the plain torch version for CPU tensors.  The one-token
 SSD step has no kernel in the reference either: it is plain torch code.
+Nor has the mLSTM: the reference's "pallas" route for it is the lax
+``ref.mlstm_chunked`` (``repro/kernels/ops.py:114-128``), no Pallas
+kernel, so ``mlstm`` and ``mlstm_decode`` are ports of lax code and run
+as torch on every device, the card included.
 """
 from __future__ import annotations
 
@@ -45,3 +49,15 @@ def ssd(x, dt, A, B, C, D, *, chunk: int = 256, h0=None):
 def ssd_decode(h, x, dt, A, B, C, D):
     """One-token SSD update -> (y, h_new f32)."""
     return ref.ssd_decode_step(h, x, dt, A, B, C, D)
+
+
+def mlstm(q, k, v, i_gate, f_gate, *, chunk: int = 256, state=None):
+    """The full-sequence mLSTM, chunk-parallel (torch on every device)
+    -> (y, (C, n, m) f32)."""
+    return ref.mlstm_chunked(q, k, v, i_gate, f_gate, chunk=chunk,
+                             state=state)
+
+
+def mlstm_decode(state, q, k, v, i_gate, f_gate):
+    """One-token mLSTM update -> (y, (C, n, m) f32)."""
+    return ref.mlstm_decode_step(state, q, k, v, i_gate, f_gate)

@@ -3,8 +3,10 @@
 Ported: the dense and paged decode-attention oracles, the naive
 attention oracle, the blockwise flash forward and two-pass backward that
 the CUDA flash kernels are held against, and the SSD (Mamba-2) oracles:
-the sequential scan, the chunked scan and the one-token decode step.
-The mLSTM oracles wait for the xLSTM family (ROADMAP Queue 1 item 7).
+the sequential scan, the chunked scan and the one-token decode step;
+and the mLSTM (xLSTM matrix memory) functions: the sequential oracle,
+the chunk-parallel form (the reference's "pallas" route too, which is
+lax code, not a Pallas kernel) and the one-token decode step.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -326,3 +329,118 @@ def ssd_decode_step(h, x, dt, A, B, C, D):
     y = torch.einsum("bhdn,bn->bhd", h_new, C.float())
     y = y + D.float()[None, :, None] * xf
     return y.to(x.dtype), h_new
+
+
+# ======================================================================
+# mLSTM (xLSTM matrix-memory): stabilized chunked linear attention
+# ======================================================================
+
+
+def _mlstm_init(state, b, nh, dh, device):
+    if state is None:
+        return (torch.zeros(b, nh, dh, dh, dtype=torch.float32, device=device),
+                torch.zeros(b, nh, dh, dtype=torch.float32, device=device),
+                torch.full((b, nh), -math.inf, dtype=torch.float32,
+                           device=device))
+    return tuple(t.float() for t in state)
+
+
+def mlstm_sequential(q, k, v, i_gate, f_gate, *, state=None):
+    """Sequential mLSTM oracle (xLSTM eqs. 19-27, log-space stabilized),
+    the reference's ``mlstm_sequential``.
+
+    q,k,v:(b,s,nh,dh) gates:(b,s,nh) pre-activation.
+    Returns y:(b,s,nh,dh) and final (C:(b,nh,dh,dh), n:(b,nh,dh), m:(b,nh)).
+    """
+    b, s, nh, dh = q.shape
+    qf, kf, vf = q.float(), k.float() / (dh ** 0.5), v.float()
+    i_f, f_f = i_gate.float(), f_gate.float()
+    C, n, m = _mlstm_init(state, b, nh, dh, q.device)
+    ys = []
+    for t in range(s):
+        qt, kt, vt, it = qf[:, t], kf[:, t], vf[:, t], i_f[:, t]
+        logf = F.logsigmoid(f_f[:, t])                      # (b,nh)
+        m_new = torch.maximum(logf + m, it)
+        fd = torch.exp(logf + m - m_new)
+        idc = torch.exp(it - m_new)
+        C = fd[..., None, None] * C + idc[..., None, None] * (
+            vt[..., None] * kt[..., None, :])
+        n = fd[..., None] * n + idc[..., None] * kt
+        m = m_new
+        num = torch.einsum("bhvk,bhk->bhv", C, qt)
+        den = torch.maximum(torch.einsum("bhk,bhk->bh", n, qt).abs(),
+                            torch.exp(-m))
+        ys.append(num / den[..., None])
+    return torch.stack(ys, 1).to(q.dtype), (C, n, m)
+
+
+def mlstm_chunked(q, k, v, i_gate, f_gate, *, chunk: int = 256, state=None):
+    """Chunk-parallel mLSTM matching ``mlstm_sequential``, the
+    reference's ``mlstm_chunked``: within a chunk, attention-like with a
+    log-decay matrix; across chunks, the carried state applied with
+    prefix decays, in a loop over the chunks."""
+    b, s, nh, dh = q.shape
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {c}")
+    nc = s // c
+
+    def rs(t):
+        return t.float().reshape(b, nc, c, *t.shape[2:])
+
+    qf, kf, vf = rs(q), rs(k) / (dh ** 0.5), rs(v)
+    i_f = rs(i_gate)
+    lcum = torch.cumsum(F.logsigmoid(rs(f_gate)), 2)      # inclusive
+    ltot = lcum[:, :, -1]                                 # (b,nc,nh)
+    C, n, m = _mlstm_init(state, b, nh, dh, q.device)
+    causal = torch.ones(c, c, dtype=torch.bool, device=q.device).tril()
+    ys = []
+    for z in range(nc):
+        qz, kz, vz, iz = qf[:, z], kf[:, z], vf[:, z], i_f[:, z]
+        lcz, ltz = lcum[:, z], ltot[:, z]
+        # log weights: state decay to position t is lcz_t + m; input j
+        # to t is lcz_t - lcz_j + i_j
+        a_state = lcz + m[:, None]                        # (b,c,nh)
+        a_in = lcz[:, :, None] - lcz[:, None] + iz[:, None]   # (b,t,j,nh)
+        a_in = torch.where(causal[None, :, :, None], a_in,
+                           torch.full_like(a_in, -math.inf))
+        m_t = torch.maximum(a_in.amax(2), a_state)       # running stabilizer
+        w_state = torch.exp(a_state - m_t)               # (b,t,nh)
+        w_in = torch.exp(a_in - m_t[:, :, None])         # (b,t,j,nh)
+        qk = torch.einsum("bthd,bjhd->btjh", qz, kz)
+        num = torch.einsum("btjh,btjh,bjhd->bthd", qk, w_in, vz)
+        num = num + w_state[..., None] * torch.einsum("bhvk,bthk->bthv", C,
+                                                      qz)
+        den = torch.einsum("btjh,btjh->bth", qk, w_in) + w_state * \
+            torch.einsum("bhk,bthk->bth", n, qz)
+        ys.append(num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None])
+        # the state carried to the end of the chunk
+        m_new = torch.maximum(ltz + m, (ltz[:, None] - lcz + iz).amax(1))
+        w_old = torch.exp(ltz + m - m_new)                # (b,nh)
+        w_tok = torch.exp(ltz[:, None] - lcz + iz - m_new[:, None])  # (b,c,nh)
+        C = w_old[..., None, None] * C + torch.einsum(
+            "bjh,bjhv,bjhk->bhvk", w_tok, vz, kz)
+        n = w_old[..., None] * n + torch.einsum("bjh,bjhk->bhk", w_tok, kz)
+        m = m_new
+    y = torch.stack(ys, 1).reshape(b, s, nh, dh)
+    return y.to(q.dtype), (C, n, m)
+
+
+def mlstm_decode_step(state, q, k, v, i_gate, f_gate):
+    """One-token mLSTM update, the reference's ``mlstm_decode_step``.
+    state=(C,n,m); q,k,v:(b,nh,dh); gates:(b,nh).  Returns (y in q's
+    dtype, (C, n, m) f32)."""
+    C, n, m = (t.float() for t in state)
+    dh = q.shape[-1]
+    qf, kf, vf = q.float(), k.float() / (dh ** 0.5), v.float()
+    logf = F.logsigmoid(f_gate.float())
+    it = i_gate.float()
+    m_new = torch.maximum(logf + m, it)
+    fd, idc = torch.exp(logf + m - m_new), torch.exp(it - m_new)
+    C = fd[..., None, None] * C + idc[..., None, None] * (
+        vf[..., None] * kf[..., None, :])
+    n = fd[..., None] * n + idc[..., None] * kf
+    num = torch.einsum("bhvk,bhk->bhv", C, qf)
+    den = torch.maximum(torch.einsum("bhk,bhk->bh", n, qf).abs(),
+                        torch.exp(-m_new))
+    return (num / den[..., None]).to(q.dtype), (C, n, m_new)

@@ -8,11 +8,14 @@ runs the continuous-batching engine in one of the controller modes:
   userspace  — poll/react daemon gating (responsiveness baseline)
   nolimit    — accounting only (no isolation baseline)
 
-It runs on the card unless ``--device cpu`` is given.  ``--reduced``
-serves the same-family miniature in f32 (the reference driver's model);
-otherwise the full-width model serves in its dtype with random weights
-from a seeded generator.  The report follows session phases, not token
-values, so a full-width run's report equals the reduced one's.
+``--arch`` takes every registered architecture, all decoders the engine
+serves (attention, Mamba-2 hybrid, mLSTM/sLSTM).  It runs on the card
+unless ``--device cpu`` is given.  ``--reduced`` serves the same-family
+miniature in f32 (the reference driver's model); otherwise the
+full-width model serves in its dtype with random weights from a seeded
+generator, at full depth unless ``--layers`` cuts it (for a model whose
+weights one card cannot hold).  The report follows session phases, not
+token values, so a full-width run's report equals the reduced one's.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
@@ -30,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.core import domains as D
 from repro_torch.core.controller import resolve_device
 from repro_torch.models import model as M
@@ -64,6 +67,11 @@ def serve(args, after_step=None, **engine) -> tuple:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(reduced(cfg), dtype="float32")
+    if args.layers:
+        if args.layers % cfg.group_size:
+            raise ValueError(f"--layers {args.layers} is no multiple of "
+                             f"{cfg.name}'s group of {cfg.group_size}")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = M.init_params(cfg, gen, device=dev)
     ecfg = EngineConfig(
@@ -112,7 +120,10 @@ def run(args) -> dict:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--arch", default="llama3.2-3b", choices=ARCH_IDS)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (a multiple of "
+                         "the layer group); 0 keeps the config's")
     ap.add_argument("--mode", default="inkernel",
                     choices=["inkernel", "userspace", "nolimit"])
     ap.add_argument("--sessions", type=int, default=4)

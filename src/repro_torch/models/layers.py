@@ -1,15 +1,26 @@
 """Shared layers: RMSNorm, RoPE, SwiGLU MLP, embedding, LM head, the
-cross-entropy loss.
+cross-entropy loss, and ``Leaf``, one parameter of the schema.
 
 Port of ``repro/models/layers.py``.  The matrix products the JAX package
 leaves to XLA stay plain ``@`` products here.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+
+
+class Leaf(NamedTuple):
+    """One parameter of the reference schema: its shape, its initializer
+    (normal: std 0.02; small: 0.002; zeros; ones) and whether it stays
+    f32 whatever the model dtype."""
+    shape: tuple
+    init: str = "normal"
+    f32: bool = False
 
 
 def rmsnorm(p, x, eps: float = 1e-5):

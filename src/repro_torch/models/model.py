@@ -4,15 +4,17 @@ Port of ``repro/models/model.py``: the full-sequence ``forward`` and
 ``loss_fn`` (training, prefill) and ``decode_step`` (serving), with the
 parameter and decode-state layouts.  A layer group follows
 ``cfg.layer_kinds()`` x ``cfg.ffn_kinds()``: GQA attention or a Mamba-2
-mixer, with a dense, MoE or no FFN (Jamba: 7 Mamba + 1 attention layer a
-group, MoE every other layer).  Parameters keep the JAX package's tree:
+mixer, an mLSTM or an sLSTM block, with a dense, MoE or no FFN (Jamba: 7
+Mamba + 1 attention layer a group, MoE every other layer; xLSTM: 7 mLSTM
++ 1 sLSTM, no FFN).  Parameters keep the JAX package's tree:
 ``embed.tok`` (and ``embed.head`` when untied), per-position ``groups``
 whose leaves are stacked on a leading ``n_groups`` axis, and
 ``out_norm``.  The decode state is a per-position list of stacked
-``{k, v}: (n_groups, B, S_max, Hkv, hd)`` caches (attention) or
-``{conv: (n_groups, B, d_conv-1, d_in), h: (n_groups, B, nh, dh, N) f32}``
-states (Mamba).  MLA, xLSTM and the vision/audio frontends are not ported
-(ROADMAP Queue 1 item 7).
+``{k, v}: (n_groups, B, S_max, Hkv, hd)`` caches (attention), or
+recurrent states whose every leaf is ``(n_groups, B, ...)``:
+``{conv, h f32}`` (Mamba), ``{C, n, m f32, conv}`` (mLSTM) and
+``{c, n, m, h}`` f32 (sLSTM).  MLA and the vision/audio frontends are
+not ported (ROADMAP Queue 1 item 7c).
 
 The reference scans the layer groups under ``jax.checkpoint``; here the
 groups are a plain loop, each under ``torch.utils.checkpoint`` as
@@ -24,7 +26,6 @@ of ``dots_with_no_batch_dims_saveable``).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,10 +36,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.controller import resolve_device
 from repro_torch.models import moe as moe_mod
-from repro_torch.models import ssm
+from repro_torch.models import ssm, xlstm
 from repro_torch.models.attention import gqa_decode, gqa_forward
-from repro_torch.models.layers import (cross_entropy, embed_tokens, lm_head,
-                                       mlp, rmsnorm, rope_table)
+from repro_torch.models.layers import (Leaf, cross_entropy, embed_tokens,
+                                       lm_head, mlp, rmsnorm, rope_table)
 from repro_torch.perf import DEFAULT_PERF, PerfConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -47,24 +48,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only; no decode step")
-    if cfg.mla is not None or cfg.xlstm is not None \
-            or cfg.frontend is not None:
+    if cfg.mla is not None or cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: MLA, xLSTM and the vision/audio frontends are not "
-            "ported (ROADMAP Queue 1 item 7)")
+            f"{cfg.name}: MLA and the vision/audio frontends are not "
+            "ported (ROADMAP Queue 1 item 7c)")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
-
-
-class Leaf(NamedTuple):
-    """One parameter of the reference schema: its shape, its initializer
-    (normal: std 0.02; small: 0.002; zeros; ones) and whether it stays
-    f32 whatever the model dtype."""
-    shape: tuple
-    init: str = "normal"
-    f32: bool = False
 
 
 def _mixer_leaves(cfg: ModelConfig, kind: str) -> dict:
@@ -75,6 +66,10 @@ def _mixer_leaves(cfg: ModelConfig, kind: str) -> dict:
                 "wk": Leaf((d, cfg.n_kv_heads * hd)),
                 "wv": Leaf((d, cfg.n_kv_heads * hd)),
                 "wo": Leaf((cfg.n_heads * hd, d), "small")}
+    if kind == "mlstm":
+        return xlstm.mlstm_leaves(cfg)
+    if kind == "slstm":
+        return xlstm.slstm_leaves(cfg)
     s, d_in, nh, _ = ssm.dims(cfg)
     return {"in_proj": Leaf((d, 2 * d_in)),
             "conv_w": Leaf((d_in, s.d_conv)),
@@ -134,6 +129,11 @@ def _is_leaf(x) -> bool:
     return isinstance(x, Leaf)
 
 
+# the largest row ``init_params`` draws at once (f32 values): a 128-expert
+# bank (llama4-maverick, 5.4e9 values a layer) is drawn expert by expert
+DRAW_ROW = 1 << 30
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda", dtype=None) -> dict:
     """Random parameters in the reference layout, drawn from ``generator``
@@ -152,10 +152,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return fill(leaf.shape, dtype=dt, device=device)
         scale = 0.002 if leaf.init == "small" else 0.02
         out = torch.empty(leaf.shape, dtype=dt, device=device)
-        for i in range(leaf.shape[0]):  # one f32 draw per row at a time
-            out[i] = (torch.randn(leaf.shape[1:], generator=generator,
-                                  device=device) * scale).to(dt)
+        draw(out, scale)
         return out
+
+    def draw(out, scale):
+        # one f32 draw per row at a time; a row of more than DRAW_ROW
+        # values (a stacked expert bank) one sub-row at a time
+        for i in range(out.shape[0]):
+            if out[i].numel() > DRAW_ROW:
+                draw(out[i], scale)
+            else:
+                out[i] = (torch.randn(out.shape[1:], generator=generator,
+                                      device=device) * scale).to(out.dtype)
 
     leaves = param_leaves(cfg)
     # the groups are drawn before the embedding, the order of earlier
@@ -188,7 +196,8 @@ def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cuda",
                  dtype=None) -> list:
     """Zeroed per-position decode states, stacked over groups, on
     ``device``: ``{k, v}`` caches for attention, ``{conv, h}`` (h f32)
-    for Mamba."""
+    for Mamba, ``{C, n, m, conv}`` (all but conv f32) for mLSTM and
+    ``{c, n, m, h}`` (f32) for sLSTM."""
     _check_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
@@ -199,13 +208,19 @@ def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cuda",
             shape = (n, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
             out.append({"k": torch.zeros(shape, dtype=dtype, device=device),
                         "v": torch.zeros(shape, dtype=dtype, device=device)})
-        else:
+            continue
+        if kind == "mamba":
             s, d_in, nh, dh = ssm.dims(cfg)
-            out.append({
-                "conv": torch.zeros(n, batch, s.d_conv - 1, d_in,
-                                    dtype=dtype, device=device),
-                "h": torch.zeros(n, batch, nh, dh, s.d_state,
-                                 dtype=torch.float32, device=device)})
+            one = {"conv": torch.zeros(batch, s.d_conv - 1, d_in,
+                                       dtype=dtype, device=device),
+                   "h": torch.zeros(batch, nh, dh, s.d_state,
+                                    dtype=torch.float32, device=device)}
+        elif kind == "mlstm":
+            one = xlstm.mlstm_state(cfg, batch, device, dtype)
+        else:
+            one = xlstm.slstm_state(cfg, batch, device)
+        out.append({k: t.expand(n, *t.shape).contiguous()
+                    for k, t in one.items()})
     return out
 
 
@@ -225,15 +240,24 @@ def _apply_ffn(cfg, ffn_kind, p, x, perf):
     return x + y, aux
 
 
+_MIXER_DECODE = {"mamba": ssm.mamba_decode, "mlstm": xlstm.mlstm_decode,
+                 "slstm": xlstm.slstm_decode}
+
+
 def decode_step(cfg: ModelConfig, params, state, tokens, lengths, *,
-                perf: PerfConfig = DEFAULT_PERF):
+                perf: PerfConfig = DEFAULT_PERF, keep=None):
     """One decode step.
 
     tokens: (B,) int current input token per slot.
     lengths: (B,) int32 tokens already in cache (this token's position).
+    keep: None, or a (B,) bool mask of the slots whose recurrent states
+    take their new value (the engine's gate).
     Returns (logits (B, V) f32, state).  The state is updated in place:
     each attention layer's cache gains row ``lengths[b]`` for every slot
-    ``b``, and each Mamba layer's ``{conv, h}`` takes its new value.
+    ``b``, and each recurrent layer's state takes its new value, only
+    where ``keep`` holds when it is given: a slot outside it keeps its
+    state bit for bit (the reference's gated ``where``, written without
+    a copy of the whole state).
     """
     _check_ported(cfg)
     x = embed_tokens(cfg, params["embed"], tokens)[:, None]
@@ -246,13 +270,25 @@ def decode_step(cfg: ModelConfig, params, state, tokens, lengths, *,
             if kinds[pos] == "attn":
                 y = gqa_decode(cfg, p["mixer"], hn, st, lengths)
             else:
-                y, new = ssm.mamba_decode(cfg, p["mixer"], hn, st)
+                y, new = _MIXER_DECODE[kinds[pos]](cfg, p["mixer"], hn, st)
                 for k, t in new.items():
-                    st[k].copy_(t)
+                    if keep is None:
+                        st[k].copy_(t)
+                    else:
+                        torch.where(keep.view(-1, *(1,) * (t.dim() - 1)),
+                                    t.to(st[k].dtype), st[k], out=st[k])
             x = x + y
             x, _ = _apply_ffn(cfg, ffns[pos], p, x, perf)
     x = rmsnorm(params["out_norm"], x, cfg.norm_eps)
     return lm_head(cfg, params["embed"], x)[:, 0], state
+
+
+def serve_step(cfg: ModelConfig, params, state, tokens, lengths, *,
+               perf: PerfConfig = DEFAULT_PERF):
+    """Closed serving step: decode, then the greedy next token (int32)."""
+    logits, state = decode_step(cfg, params, state, tokens, lengths,
+                                perf=perf)
+    return logits.argmax(-1).to(torch.int32), state
 
 
 # ------------------------------------------------------------- forward
@@ -293,6 +329,10 @@ def _unstack(tree, n: int) -> list:
     return out
 
 
+_MIXER_FORWARD = {"mamba": ssm.mamba_forward, "mlstm": xlstm.mlstm_forward,
+                  "slstm": xlstm.slstm_forward}
+
+
 def forward(cfg: ModelConfig, params, batch, *,
             perf: PerfConfig = DEFAULT_PERF, causal=None):
     """Full-sequence forward -> (logits (B,S,V) f32, aux loss scalar f32,
@@ -314,7 +354,7 @@ def forward(cfg: ModelConfig, params, batch, *,
                 h = h + gqa_forward(cfg, p["mixer"], hn, cos, sin,
                                     causal=causal)
             else:
-                h = h + ssm.mamba_forward(cfg, p["mixer"], hn, perf=perf)
+                h = h + _MIXER_FORWARD[kind](cfg, p["mixer"], hn, perf=perf)
             h, a = _apply_ffn(cfg, ffn, p, h, perf)
             if a is not None:
                 aux = a if aux is None else aux + a

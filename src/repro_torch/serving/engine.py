@@ -498,19 +498,24 @@ class Engine:
                                                   torch.full_like(dom, -1)),
                                 amt)
             granted, stalled = gate, (dom >= 0) & ~gate
-        # The gated merge, in place.  decode_step writes only row
-        # lengths[b] of each layer's cache; those rows are saved before
-        # the write and put back for slots the gate did not grant — the
-        # reference's where() over the whole cache, without copying it.
+        # The gated merge, in place: the reference's where() over the
+        # whole state, without copying it.  decode_step writes only row
+        # lengths[b] of each attention cache; those rows are saved before
+        # the write and put back for slots the gate did not grant.  A
+        # recurrent layer (Mamba, mLSTM, sLSTM) rewrites its whole state:
+        # decode_step writes its new value under the gate (``keep``), so
+        # a denied slot keeps its state bit for bit.
         state = self.caches.state
+        attn = [pos for kind, pos in zip(self.cfg.layer_kinds(), state)
+                if kind == "attn"]
         bidx = torch.arange(e.max_slots, device=self.device)
         rows = lengths.long()
         saved = [{k: t[:, bidx, rows] for k, t in pos.items()}
-                 for pos in state]
+                 for pos in attn]
         logits, _ = M.decode_step(self.cfg, self.params, state, tokens,
-                                  lengths)
+                                  lengths, keep=gate)
         keep = gate[None, :, None, None]
-        for pos, old in zip(state, saved):
+        for pos, old in zip(attn, saved):
             for k, t in pos.items():
                 t[:, bidx, rows] = torch.where(keep, t[:, bidx, rows], old[k])
         nxt = sample(logits, self.generator, temperature=e.temperature)

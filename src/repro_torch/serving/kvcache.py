@@ -4,7 +4,8 @@ Port of ``repro/serving/kvcache.py``:
   * ``PageAccountant`` — maps context length to page counts (the charge
     unit of the resource domains; 1 page = ``page_tokens`` tokens).
   * ``SlotCaches`` — the dense per-slot decode state
-    (``model.decode_state``), with freeze/thaw slot offload to a
+    (``model.decode_state``: attention caches and recurrent states, every
+    leaf ``[group, slot, ...]``), with freeze/thaw slot offload to a
     ``FrozenStore`` in host memory and slot recycling.  The engine runs
     this dense layout; the paged-decode kernel
     (``kernels/decode_attention.py::paged_decode_attention``) exists,
@@ -35,15 +36,16 @@ class PageAccountant:
 
 
 def check_servable(cfg: ModelConfig) -> None:
-    """The engine serves attention-only models.  Its gated merge saves and
-    restores the one cache row a step writes (``lengths[b]``), while a
-    Mamba layer overwrites its whole ``{conv, h}`` state every step, and
-    freeze/thaw and ``free_slot`` would have to carry those states too."""
-    if set(cfg.layer_kinds()) != {"attn"}:
+    """The engine serves decoders of attention, Mamba, mLSTM and sLSTM
+    layers: each state leaf is ``[group, slot, ...]``, so the gated merge
+    (``serving/engine.py``), ``free_slot`` and freeze/thaw carry every
+    layout by its slot axis.  MLA, the vision/audio frontends and
+    encoder-only models are not ported."""
+    if cfg.mla is not None or cfg.frontend is not None or cfg.encoder_only:
         raise NotImplementedError(
-            f"{cfg.name}: the engine serves attention-only models; Mamba "
-            "states in the gated merge, freeze/thaw and free_slot are not "
-            "ported yet (ROADMAP Queue 1 item 7)")
+            f"{cfg.name}: the engine serves attention, Mamba, mLSTM and "
+            "sLSTM decoders; MLA, the vision/audio frontends and "
+            "encoder-only models are not ported (ROADMAP Queue 1 item 7c)")
 
 
 class SlotCaches:

@@ -56,6 +56,11 @@ def dev():
     (8, 24, 8, 128, 2048), (2, 8, 1, 64, 77), (4, 16, 2, 32, 513),
     (2, 10, 2, 64, 300), (2, 12, 2, 128, 1000), (3, 14, 2, 32, 129),
     (2, 8, 8, 128, 64), (1, 24, 8, 128, 32768),
+    # the decoder families' heads at the engine's slots: minicpm (G 1 at
+    # d 64 over 36 kv heads), phi3 (G 4 over 10), maverick (G 5),
+    # internlm2 (G 6)
+    (8, 36, 36, 64, 2048), (8, 40, 10, 128, 2048), (8, 40, 8, 128, 2048),
+    (8, 48, 8, 128, 2048),
 ])
 def test_decode_attention_kernel(dev, B, H, hkv, d, s_max, dtype):
     g = torch.Generator(device=dev).manual_seed(B * 1000 + s_max)
@@ -372,6 +377,9 @@ FLASH_SHAPES = [  # B, S, Sk, H, Hkv, d, causal
     (2, 50, 50, 4, 2, 128, True), (1, 33, 200, 8, 8, 64, False),
     (1, 300, 500, 6, 2, 80, True), (1, 500, 300, 4, 1, 32, True),
     (2, 200, 333, 6, 3, 128, True), (1, 260, 140, 3, 3, 64, True),
+    # the decoder families' heads: minicpm, phi3, maverick, internlm2
+    (1, 512, 512, 36, 36, 64, True), (1, 512, 512, 40, 10, 128, True),
+    (1, 512, 512, 40, 8, 128, True), (1, 512, 512, 48, 8, 128, True),
 ]
 
 

@@ -5,9 +5,13 @@ JAX weights carried over, in ``inkernel`` mode (with per-session
 ``inkernel`` mode under the weighted step scheduler (``sched_slots``);
 sessions derived from generated traces through ``session_from_trace``;
 and the control planes beside the device table: the async lifecycle
-daemon (with a poisoned daemon rebuilt mid-run) and the sharded table.
-``Engine.report()`` follows session phases, not token values, and must
-be field-identical.  The JAX reports are computed once per module."""
+daemon (with a poisoned daemon rebuilt mid-run) and the sharded table;
+and the other decoder families on the same sessions: reduced Jamba
+(inkernel and userspace), xLSTM and llama4-maverick, with their greedy
+token streams, a denied slot's recurrent state and a frozen-then-thawed
+slot's state held bit for bit.  ``Engine.report()`` follows session
+phases, not token values, and must be field-identical.  The JAX reports
+are computed once per module."""
 import dataclasses
 
 import jax
@@ -309,3 +313,140 @@ def test_two_shards_hold_the_guarantees(torch_model):
     assert eng.cg.usage("/") == 0
     assert eng.cg.backend.placement() == {"/t": 0, "/u": 1}
     assert eng.pool_capacity == 2 * COMMON["pool_pages"]
+
+
+# ------------------------------------------- the other decoder families
+
+# (arch, mode) runs held against the JAX engine: the recurrent families
+# (Jamba's Mamba-2 layers, xLSTM's mLSTM/sLSTM) and the MoE GQA maverick
+FAMILY_RUNS = [("jamba-v0.1-52b", "inkernel"), ("jamba-v0.1-52b", "userspace"),
+               ("xlstm-350m", "inkernel"),
+               ("llama4-maverick-400b-a17b", "inkernel")]
+RECURRENT_ARCHS = ["jamba-v0.1-52b", "xlstm-350m"]
+
+
+@pytest.fixture(scope="module")
+def family_models():
+    """Reduced f32 models of each family, the JAX weights (widened as the
+    hybrid and families tests widen them) carried over to the port."""
+    from repro.configs import get_config, reduced
+    from repro.models import model as JM
+    from repro.models.schema import init_params
+    from test_torch_families import lively as lively_xlstm
+    from test_torch_hybrid import lively as lively_mamba
+
+    out = {}
+    for arch in {a for a, _ in FAMILY_RUNS}:
+        cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+        tcfg = dataclasses.replace(t_reduced(t_get_config(arch)),
+                                   dtype="float32")
+        raw = jax.tree.map(np.asarray, init_params(
+            JM.param_schema(cfg), jax.random.PRNGKey(0), cfg.dtype))
+        raw = (lively_mamba if "mamba" in cfg.layer_kinds()
+               else lively_xlstm)(raw, cfg)
+        out[arch] = (cfg, jax.tree.map(jax.numpy.asarray, raw), tcfg,
+                     TM.params_from_jax(raw, tcfg, device="cpu"))
+    return out
+
+
+@pytest.fixture(scope="module")
+def family_runs(family_models):
+    """Each (arch, mode) run on both engines, once: (report, token
+    streams) of the JAX engine and of the port's."""
+    out = {}
+    for arch, mode in FAMILY_RUNS:
+        cfg, params, tcfg, tparams = family_models[arch]
+        runs = []
+        for E, Cfg, model, S, D, dev in (
+                (JEngine, JEngineConfig, (cfg, params), JS, JD, {}),
+                (TEngine, TEngineConfig, (tcfg, tparams), TS, TD,
+                 {"device": "cpu"})):
+            eng = E(*model, ecfg=Cfg(**COMMON, **MODES[mode]), seed=0, **dev)
+            sess = sessions(S, D)
+            for s in sess:
+                eng.submit(s)
+            eng.run(6000)
+            runs.append((eng.report(), [s.out_tokens for s in sess]))
+        out[arch, mode] = runs
+    return out
+
+
+@pytest.mark.parametrize("arch,mode", FAMILY_RUNS,
+                         ids=[f"{a}-{m}" for a, m in FAMILY_RUNS])
+def test_family_report_field_identical(family_runs, arch, mode):
+    (jreport, _), (treport, _) = family_runs[arch, mode]
+    assert treport == jreport
+    assert treport["completed"] == 3
+    if mode == "inkernel":       # freeze/thaw carried the states
+        assert treport["freezes"] >= 1 and treport["thaws"] >= 1
+
+
+@pytest.mark.parametrize("arch", sorted({a for a, _ in FAMILY_RUNS}))
+def test_family_greedy_streams_equal(family_runs, arch):
+    """At temperature 0 every session samples the JAX engine's tokens."""
+    (_, jstreams), (_, tstreams) = family_runs[arch, "inkernel"]
+    assert tstreams == jstreams
+    assert all(len(s) > 0 for s in tstreams)
+
+
+def _slot_leaves(state, slot):
+    return [t[:, slot].clone() for pos in state for t in pos.values()]
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_denied_slot_keeps_its_state_bit_for_bit(family_models, arch):
+    """A step whose gate denies slot 0: slot 0's whole state (recurrent
+    leaves and cache rows) is bit-identical after it, while the granted
+    slot's recurrent state moved."""
+    _, _, tcfg, tparams = family_models[arch]
+    eng = TEngine(tcfg, tparams, ecfg=TEngineConfig(**COMMON), seed=0,
+                  device="cpu")
+    for s in sessions(TS, TD)[:2]:
+        eng.submit(s)
+    for _ in range(6):
+        eng.step()
+    state = eng.caches.state
+    dom = torch.tensor([eng.sessions[sid].dom_idx for sid in
+                        eng.slot_session[:2]] + [-1, -1], dtype=torch.int32)
+    tokens = torch.tensor([3, 5, 0, 0], dtype=torch.int32)
+    lengths = torch.tensor([eng.sessions[sid].length for sid in
+                            eng.slot_session[:2]] + [0, 0], dtype=torch.int32)
+    before = [_slot_leaves(state, b) for b in (0, 1)]
+    nxt, _, granted, _ = eng._device_step(
+        tokens, lengths, dom, torch.zeros(4, dtype=torch.int32),
+        torch.tensor([False, True, False, False]), inkernel=False)
+    assert granted.tolist() == [False, True, False, False]
+    assert int(nxt[0]) == 3
+    for a, b in zip(before[0], _slot_leaves(state, 0)):
+        assert torch.equal(a, b)
+    kinds = [kind for kind, pos in zip(tcfg.layer_kinds(), state)
+             for _ in pos]
+    same = [torch.equal(a, b) for a, b, kind in zip(
+        before[1], _slot_leaves(state, 1), kinds) if kind != "attn"]
+    assert same and not any(same)
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_freeze_thaw_gives_the_state_back_bit_for_bit(family_models, arch):
+    """A slot's recurrent states and caches, filled from a seeded draw,
+    come back bit-identical in the slot a thaw picks; the frozen slot is
+    zeroed for reuse."""
+    from repro_torch.serving.kvcache import SlotCaches
+
+    _, _, tcfg, _ = family_models[arch]
+    caches = SlotCaches(tcfg, 3, 32, "cpu")
+    g = torch.Generator().manual_seed(0)
+    for pos in caches.state:
+        for t in pos.values():
+            t.copy_(torch.randn(t.shape, generator=g).to(t.dtype))
+    assert [caches.alloc_slot() for _ in range(3)] == [0, 1, 2]
+    want = _slot_leaves(caches.state, 1)
+    caches.free_slot(0)                  # the thaw takes slot 0
+    caches.freeze_slot("s", 1, pages=3)
+    assert all(not t.any() for t in _slot_leaves(caches.state, 1))
+    slot, _ = caches.thaw_slot("s")
+    assert slot == 0
+    got = _slot_leaves(caches.state, slot)
+    assert len(got) == len(want)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -161,19 +161,46 @@ def test_forward_matches_own_decode(pair):
                                    atol=1e-4)
 
 
-def test_engine_refuses_mamba_models():
-    """The engine's gated merge restores one cache row a slot; a Mamba
-    layer rewrites its whole state, so Jamba is refused until that is
-    ported."""
+def test_engine_serves_reduced_jamba():
+    """The engine serves Jamba: its Mamba states go through the gated
+    merge, ``free_slot`` and freeze/thaw by their slot axis (the report
+    against the JAX engine's is in ``tests/test_torch_engine.py``)."""
+    from repro_torch.core import domains as TD
+    from repro_torch.serving import session as TS
     from repro_torch.serving.engine import Engine, EngineConfig
-    from repro_torch.serving.kvcache import SlotCaches
 
     _, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        SlotCaches(tcfg, 2, 32, "cpu")
-    with pytest.raises(NotImplementedError, match="gated merge"):
-        Engine(tcfg, None, ecfg=EngineConfig(max_slots=2, s_max=32),
-               device="cpu")
+    params = TM.init_params(tcfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    eng = Engine(tcfg, params, ecfg=EngineConfig(max_slots=2, s_max=64,
+                                                 pool_pages=8),
+                 device="cpu")
+    eng.submit(TS.Session(sid="a", tenant="t", priority=TD.HIGH,
+                          prompt=list(range(2, 20)),
+                          phases=[TS.Phase(4, 8, "test"), TS.Phase(4, 0)]))
+    eng.run(200)
+    assert eng.done() and eng.report()["completed"] == 1
+    kinds = {kind: set(pos) for kind, pos in zip(tcfg.layer_kinds(),
+                                                 eng.caches.state)}
+    assert kinds == {"attn": {"k", "v"}, "mamba": {"conv", "h"}}
+
+
+@pytest.mark.parametrize("change", ["mla", "vision", "audio_encoder"])
+def test_engine_refuses_mla_and_frontends(change):
+    """MLA, the frontends and encoder-only models wait for ROADMAP item 7c."""
+    from repro_torch.configs.base import MLAConfig
+    from repro_torch.serving.kvcache import SlotCaches, check_servable
+
+    base = t_reduced(t_get_config("llama3.2-3b"))
+    cfg = dataclasses.replace(base, **{
+        "mla": dict(mla=MLAConfig()),
+        "vision": dict(frontend="vision", n_frontend_tokens=16),
+        "audio_encoder": dict(frontend="audio", encoder_only=True),
+    }[change])
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        check_servable(cfg)
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        SlotCaches(cfg, 2, 32, "cpu")
 
 
 def test_card_training_refuses_mamba_models():

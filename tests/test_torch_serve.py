@@ -120,18 +120,22 @@ def test_adaptive_engine_identical(jax_runs, torch_model, name):
         assert bumps and all(e.t_ms == int(e.t_ms) for e in bumps)
 
 
-# the driver's defaults, and a pool the sessions overrun (freezes act)
-SERVE_ARGS = [[], ["--pool-pages", "32"]]
+# the driver's defaults, and a pool the sessions overrun (freezes act),
+# the latter also on the recurrent xLSTM
+SERVE_ARGS = [[], ["--pool-pages", "32"],
+              ["--pool-pages", "32", "--arch", "xlstm-350m"]]
 
 
-@pytest.mark.parametrize("extra", SERVE_ARGS, ids=["defaults", "tight"])
+@pytest.mark.parametrize("extra", SERVE_ARGS,
+                         ids=["defaults", "tight", "xlstm_tight"])
 def test_serve_reduced_cpu_matches_reference(extra):
     """``python -m repro_torch.launch.serve --reduced --device cpu`` and
     the reference driver on the same arguments: the same report."""
     args = TServe.parser().parse_args(["--reduced", "--device", "cpu"]
                                       + extra)
     jargs = argparse.Namespace(**{k: v for k, v in vars(args).items()
-                                  if k not in ("reduced", "device")})
+                                  if k not in ("reduced", "device",
+                                               "layers")})
     with contextlib.redirect_stdout(io.StringIO()) as got_out:
         got = TServe.run(args)
     with contextlib.redirect_stdout(io.StringIO()) as want_out:
