@@ -34,7 +34,9 @@ Phases, one JSON line each on standard output:
                  on another cache set) by the profiler beside
                  ``scaled_dot_product_attention``; and in bf16 at every
                  family's heads (G 1 at d 64, G 4 over 10 kv heads, G 5,
-                 G 6, Jamba's G 4), short and filled, timed the same way; the flash forward and
+                 G 6, Jamba's G 4, pixtral's G 4 at d 160), short and
+                 filled, timed the same way; at d 160 also long (timed
+                 the same way), f32 filled and ragged; the flash forward and
                  backward at the training shape (B=1, S=4096, H=24, Hkv=8,
                  d=128, bf16, causal), at a ragged S=1000, non-causal and
                  causal, f32 and bf16, at S=333 against Sk=1000 (f32 full,
@@ -46,10 +48,17 @@ Phases, one JSON line each on standard output:
                  and 2e-2 (rms(b) + |b|) in bf16, and in bf16 within 1e-2
                  norm-relative, b being the plain version's value; the
                  library's forward, backward alone and both timed beside
-                 them; the paged decode at the
+                 them; the flash forward at d 160 (pixtral: S 4096, H
+                 32 / Hkv 8, causal, bf16, timed beside the library's
+                 forward; a ragged S 1000 non-causal in f32 and bf16 and
+                 causal in bf16) and its refusal of a gradient there;
+                 hubert's heads (H 16 / 16, d 80, non-causal, S 4096),
+                 forward and backward, timed beside the library's; the
+                 paged decode at the
                  same shapes over a permuted pool of 16-token pages
                  (-1 table entries past each length), f32 and bf16, with
-                 32-token pages and v narrower than k in both, timed as
+                 32-token pages and v narrower than k in both, and at
+                 pixtral's heads (bf16 short and filled, f32), timed as
                  the dense one; the SSD scan at
                  the Jamba prefill's shape (b=1, s=32768, nh=8, dh=1024,
                  N=16, chunk 256, bf16, B and C strided), in f32 at s=4096,
@@ -65,9 +74,9 @@ Phases, one JSON line each on standard output:
                  weighted step scheduler, and with the adaptive retuner
                  acting (its retune actions identical too); then the
                  reduced f32 Jamba, xLSTM (their Mamba and xLSTM leaves
-                 widened) and llama4-maverick the same way: decode
-                 logits within 1e-4, inkernel reports and greedy token
-                 streams identical.
+                 widened), llama4-maverick and pixtral-12b the same way:
+                 decode logits within 1e-4, inkernel reports and greedy
+                 token streams identical.
   engine_full    the full-width llama3.2-3b (28 layers, bf16, random
                  weights from a seeded generator on the card) serving 8
                  agent sessions of 2 tenants in inkernel mode; every step
@@ -98,9 +107,10 @@ Phases, one JSON line each on standard output:
                  tokens/s.
   families_full  ``launch.serve`` as serve_full on every other family at
                  full width (bf16, seeded random weights): phi3-medium-
-                 14b, minicpm-2b, internlm2-20b and xlstm-350m at full
-                 depth, llama4-maverick cut to 2 layers and Jamba to 8
-                 (the cuts printed with their reason); each report equal
+                 14b, minicpm-2b, internlm2-20b, xlstm-350m and
+                 pixtral-12b (d 160) at full depth, llama4-maverick cut
+                 to 2 layers and Jamba to 8 (the cuts printed with their
+                 reason); each report equal
                  to the same config's reduced CPU run, the gate read on
                  the live table each step, one charge and one gate launch
                  a step and a decode launch per attention layer a step;
@@ -142,6 +152,21 @@ Phases, one JSON line each on standard output:
                  at that shape (H=32, Hkv=8, d=128, bf16, causal) against
                  its plain version under the bf16 bar of the kernels phase,
                  and timed beside the library call.
+  frontends_full the frontend families: the reduced f32 hubert-xlarge
+                 trained 3 steps on the card and on the CPU (losses
+                 within 1e-4) and the reduced f32 pixtral-12b forward
+                 with patches on both (logits within 1e-4); then
+                 ``launch.train --arch hubert-xlarge`` at full width (48
+                 layers, d 1280, bf16, train_4k's 4096 frames at batch
+                 1, the masked-frame loss, ``remat="dots"``, 8 steps, 2
+                 untimed: finite losses, the first where random weights
+                 put it, 96 flash forward and 48 backward launches a
+                 step); and ``models/model.py::forward`` under inference
+                 mode on the full-width pixtral-12b (40 layers, d 5120)
+                 over a 4096-token sequence whose first 1,024 positions
+                 are patches: 40 d-160 flash launches a call, finite
+                 logits, the text positions' cross-entropy where random
+                 weights put it; 1 untimed and 3 timed calls.
   profile        (only with ``--phases profile``) ``torch.profiler`` over
                  30 full-width engine steps: device busy and idle time, and
                  the kernels that take it.
@@ -149,6 +174,11 @@ Phases, one JSON line each on standard output:
                  full-width train steps of the train_full configuration.
   prefill_profile (only with ``--phases prefill_profile``) the same over 2
                  prefills of the prefill_full configuration.
+
+The CPU engine runs that engine_parity, engine_full, serve_full,
+families_full and control_full compare with (``cpu_reference``) run in
+worker processes started with the script (``CpuRefs``), while the card
+works; the script stops them before it exits.
 
 Then the kernel table (one JSON object), the card's ``name, power.limit``
 as nvidia-smi prints them, and the result line.  Any failed check raises,
@@ -163,6 +193,8 @@ import contextlib
 import dataclasses
 import io
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -192,7 +224,14 @@ def fail(msg: str) -> None:
     sys.exit(2)
 
 
+START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also says when it ended, in seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - START)
     print(json.dumps(obj), flush=True)
 
 
@@ -564,6 +603,7 @@ def check_decode(dev, seed: int) -> dict:
     t = out["times"]["short"]
     out["timing"] = (t["device_ms"], plain, t["bound"], t["library_ms"])
     out.update(check_decode_groups(dev, seed))
+    out.update(check_decode_d160(dev, seed))
     return out
 
 
@@ -576,7 +616,10 @@ DECODE_GROUPS = {
     "maverick_G5_d128": dict(B=8, H=40, hkv=8, d=128),
     "internlm2_G6_d128": dict(B=8, H=48, hkv=8, d=128),
     "jamba_G4_d128": dict(B=8, H=32, hkv=8, d=128),
+    "pixtral_G4_d160": dict(B=8, H=32, hkv=8, d=160),
 }
+# pixtral-12b's attention heads at the engine's 8 slots
+PIXTRAL_HEADS = DECODE_GROUPS["pixtral_G4_d160"]
 
 
 def check_decode_groups(dev, seed: int) -> dict:
@@ -617,6 +660,55 @@ def check_decode_groups(dev, seed: int) -> dict:
             del sets, args
             torch.cuda.empty_cache()
     out["group_times"] = times
+    return out
+
+
+def check_decode_d160(dev, seed: int) -> dict:
+    """The decode kernel at pixtral's heads beyond ``check_decode_groups``'
+    short and filled bf16 cases: the long context of ``decode_bench``
+    (S_max 32768) against the plain version as ``decode_close`` says,
+    timed cold (one kernel a call) beside its bound, the plain version
+    and the library call; f32 at the filled shape and at a ragged S_max
+    of 1001 with an empty slot."""
+    from repro_torch.kernels import decode_attention as A
+    from repro_torch.kernels import decode_bench as DB
+
+    out = {}
+    spec = DB.SHAPES["long"]
+    sets = DB.cache_sets("long", "dense", dev, seed, heads=PIXTRAL_HEADS)
+    args = sets[0]
+    r = decode_close(A.decode_attention(*args),
+                     A.decode_attention_plain(*args), args[-1])
+    if not r["ok"]:
+        raise AssertionError(f"decode d160 long: {r}")
+    out["bf16_d160_long"] = r
+    m = DB.measure(A.decode_attention, sets, spec["calls"])
+    if m["kernels_per_call"] != 1:
+        raise AssertionError(f"a d-160 decode call ran {m['kernels']}, "
+                             "not one kernel")
+    out["long_times"] = {
+        "ms": m["device_ms"], "issue_ms": m["issue_ms"],
+        "bound_ms": DB.bound("long", False, PIXTRAL_HEADS)[0],
+        "plain_ms": cuda_ms(lambda: A.decode_attention_plain(*args), 3, 1),
+        "library_ms": DB.measure(DB.library, sets,
+                                 spec["calls"])["device_ms"],
+        "max_abs_err": r["max_abs"], "slot_norm_rel_err": r["slot_norm_rel"]}
+    del sets, args
+    torch.cuda.empty_cache()
+    B, H, hkv, d = (PIXTRAL_HEADS[k] for k in ("B", "H", "hkv", "d"))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for name, s_max, lens in (
+            ("f32_d160_filled", 2048, DB.SHAPES["filled"]["lengths"]),
+            ("f32_d160_ragged", 1001, [0, 1, 700, 1001, 5, 64, 65, 999])):
+        q = torch.randn(B, H, d, generator=g, device=dev)
+        k, v = (torch.randn(B, s_max, hkv, d, generator=g, device=dev)
+                for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        r = decode_close(A.decode_attention(q, k, v, lengths),
+                         A.decode_attention_plain(q, k, v, lengths), lengths)
+        if not r["ok"]:
+            raise AssertionError(f"decode {name}: {r}")
+        out[name] = r
     return out
 
 
@@ -664,16 +756,17 @@ def _flash_errs(FA, R, q, k, v, do, causal) -> dict:
     return {name: flash_close(a, b, q.dtype) for name, a, b in pairs}
 
 
-# library -> (instantiations of each kernel: the flash kernels' four head
-# dims, the decode kernel's nine (dk, dv) pairs; kernel -> the SASS
-# instructions it must hold)
+# library -> kernel -> (its instantiations, the SASS instructions each
+# must hold): the flash forward's five head dims (d 160 too) and the
+# backward's four; the decode kernel's nine (dk, dv) pairs of 32, 64 and
+# 128, and d 160
 KERNEL_SASS = {
-    "flash_attention": (4, {"fwd_wgmma_kernel": ("HGMMA", "UTMALDG"),
-                            "dq_mma_kernel": ("HMMA", "LDGSTS"),
-                            "dkdv_mma_kernel": ("HMMA", "LDGSTS")}),
-    "mamba_scan": (1, {"ssd_state_kernel": ("HMMA", "LDGSTS"),
-                       "ssd_chunk_scan_kernel": ("HMMA", "LDGSTS")}),
-    "decode_attention": (9, {"decode_mma_kernel": ("HMMA", "LDGSTS")}),
+    "flash_attention": {"fwd_wgmma_kernel": (5, ("HGMMA", "UTMALDG")),
+                        "dq_mma_kernel": (4, ("HMMA", "LDGSTS")),
+                        "dkdv_mma_kernel": (4, ("HMMA", "LDGSTS"))},
+    "mamba_scan": {"ssd_state_kernel": (1, ("HMMA", "LDGSTS")),
+                   "ssd_chunk_scan_kernel": (1, ("HMMA", "LDGSTS"))},
+    "decode_attention": {"decode_mma_kernel": (10, ("HMMA", "LDGSTS"))},
 }
 
 
@@ -687,14 +780,14 @@ def kernel_sass(libs: dict) -> dict:
 
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     out = {}
-    for lib, (copies, kernels) in KERNEL_SASS.items():
+    for lib, kernels in KERNEL_SASS.items():
         sass = subprocess.run([str(tool), "-sass", str(libs[lib])],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
         counts = {}
         for block in sass.split("Function : ")[1:]:
             name = block.split("\n", 1)[0]
-            for kernel, ops in kernels.items():
+            for kernel, (_, ops) in kernels.items():
                 if kernel in name:
                     rest = name.split(kernel, 1)[1]
                     dim = ",".join(rest.split("ILi", 1)[1].split("EE")[0]
@@ -702,7 +795,10 @@ def kernel_sass(libs: dict) -> dict:
                     counts[f"{kernel}<{dim}>" if dim else kernel] = {
                         op: block.count(op) for op in ops}
         missing = [k for k, c in counts.items() if not all(c.values())]
-        if len(counts) != copies * len(kernels) or missing:
+        copies = {kernel: sum(1 for k in counts
+                              if k.split("<")[0] == kernel)
+                  for kernel in kernels}
+        if copies != {k: n for k, (n, _) in kernels.items()} or missing:
             raise AssertionError(f"{lib} SASS: {counts}")
         out[lib] = counts
     return out
@@ -810,21 +906,111 @@ FLASH_GROUPS = {
 }
 
 
-def _flash_times(FA, q, k, v, do, B, S, H, hkv, d) -> dict:
-    """The bf16 causal flash forward and backward's issue pace at one
-    shape, beside their bounds (``check_flash``'s counts)."""
-    o, lse = FA.flash_fwd(q, k, v, causal=True)
-    fwd_ops = 4 * B * H * S * S * d / 2
+def _flash_times(FA, q, k, v, do, B, S, H, hkv, d, causal=True,
+                 backward=True) -> dict:
+    """The bf16 flash forward's (and backward's) issue pace at one shape,
+    beside their bounds (``check_flash``'s counts: a causal call does
+    half the S x S work)."""
+    o, lse = FA.flash_fwd(q, k, v, causal=causal)
+    fwd_ops = 4 * B * H * S * S * d / (2 if causal else 1)
     qkv_bytes = 2 * (B * S * H * d + 2 * B * S * hkv * d)
     fwd_bytes = qkv_bytes + 2 * B * S * H * d + 4 * B * H * S
     bwd_bytes = qkv_bytes + 2 * 2 * B * S * H * d + 4 * B * H * S + qkv_bytes
-    return {"fwd_ms": cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=True),
-                              5, 1),
-            "fwd_bound_ms": bound_ms(fwd_bytes, fwd_ops, torch.bfloat16)[0],
-            "bwd_ms": cuda_ms(lambda: FA.flash_bwd(q, k, v, o, lse, do,
-                                                   causal=True), 3, 1),
-            "bwd_bound_ms": bound_ms(bwd_bytes, 2.5 * fwd_ops,
-                                     torch.bfloat16)[0]}
+    out = {"fwd_ms": cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=causal),
+                             5, 1),
+           "fwd_bound_ms": bound_ms(fwd_bytes, fwd_ops, torch.bfloat16)[0]}
+    if backward:
+        out.update(bwd_ms=cuda_ms(lambda: FA.flash_bwd(
+            q, k, v, o, lse, do, causal=causal), 3, 1),
+            bwd_bound_ms=bound_ms(bwd_bytes, 2.5 * fwd_ops,
+                                  torch.bfloat16)[0])
+    return out
+
+
+# pixtral-12b's heads at the training shape (d 160: a forward only) and
+# hubert-xlarge's (MHA, d 80, bidirectional)
+FLASH_PIXTRAL = dict(B=1, S=4096, H=32, hkv=8, d=160)
+FLASH_HUBERT = dict(B=1, S=4096, H=16, hkv=16, d=80)
+
+
+def check_flash_frontends(dev, seed: int) -> dict:
+    """The flash forward at d 160 against its plain version (out and lse,
+    ``flash_close``): pixtral's training shape (causal, bf16), timed
+    beside its plain version, the library's forward and its operations
+    bound; a ragged S of 1000, non-causal in f32 and bf16 and causal in
+    bf16; and, on CUDA inputs that require grad, ``flash_attention``
+    refusing d 160 before any launch.  Then hubert's heads (non-causal,
+    bf16): forward and backward against the plain versions, timed beside
+    their bounds and the library's forward and backward alone."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as R
+
+    g = torch.Generator(device=dev).manual_seed(seed + 160)
+    out, times = {}, {}
+    cases = [("d160_train_bf16_causal", torch.bfloat16, True, FLASH_PIXTRAL)]
+    for name, dtype, causal in (("d160_ragged_f32_full", torch.float32,
+                                 False),
+                                ("d160_ragged_bf16_full", torch.bfloat16,
+                                 False),
+                                ("d160_ragged_bf16_causal", torch.bfloat16,
+                                 True)):
+        cases.append((name, dtype, causal, dict(FLASH_PIXTRAL, B=2, S=1000)))
+    for name, dtype, causal, shape in cases:
+        q, k, v, _ = _flash_inputs(g, dev, dtype, **shape)
+        got, lse = FA.flash_fwd(q, k, v, causal=causal)
+        want, want_lse = R.flash_fwd(q, k, v, causal=causal)
+        errs = {"out": flash_close(got, want, dtype),
+                "lse": flash_close(lse, want_lse, dtype)}
+        if not all(e["ok"] for e in errs.values()):
+            raise AssertionError(f"flash {name}: {errs} over "
+                                 f"{ATTN_TOL[dtype]}")
+        out[name] = errs
+        if name.startswith("d160_train"):
+            t = _flash_times(FA, q, k, v, None, **shape, backward=False)
+            qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+            t["plain_ms"] = cuda_ms(lambda: R.flash_fwd(q, k, v,
+                                                        causal=True), 3, 1)
+            t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True), 10, 2)
+            t["tflops"] = (4 * shape["S"] ** 2 * shape["H"] * shape["d"] / 2
+                           / t["fwd_ms"] / 1e9)
+            times["pixtral_d160"] = t
+        del q, k, v, got, lse, want, want_lse
+    q = torch.zeros(1, 16, 4, 160, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    before = FA.flash_fwd.launches
+    try:
+        FA.flash_attention(q, q, q)
+    except ValueError as e:
+        out["d160_grad_refused"] = str(e)
+    if "d160_grad_refused" not in out or FA.flash_fwd.launches != before:
+        raise AssertionError("flash_attention took d 160 with a gradient "
+                             "to come")
+    # hubert: both passes, non-causal
+    q, k, v, do = _flash_inputs(g, dev, torch.bfloat16, **FLASH_HUBERT)
+    errs = _flash_errs(FA, R, q, k, v, do, False)
+    if not all(e["ok"] for e in errs.values()):
+        raise AssertionError(f"flash hubert: {errs}")
+    out["hubert_bf16_full"] = errs
+    t = _flash_times(FA, q, k, v, do, **FLASH_HUBERT, causal=False)
+    o, lse = FA.flash_fwd(q, k, v, causal=False)
+    t["fwd_plain_ms"] = cuda_ms(lambda: R.flash_fwd(q, k, v, causal=False),
+                                3, 1)
+    t["bwd_plain_ms"] = cuda_ms(lambda: R.flash_bwd(
+        q, k, v, o, lse, do, causal=False), 3, 1)
+    lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    t["fwd_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        lq.detach(), lk.detach(), lv.detach()), 10, 2)
+    y = F.scaled_dot_product_attention(lq, lk, lv)
+    dos = do.transpose(1, 2)
+    t["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        y, (lq, lk, lv), dos, retain_graph=True), 5, 1)
+    times["hubert_d80_full"] = t
+    out["times"] = times
+    return out
 
 
 SSD_PATH = dict(b=1, s=32768, nh=8, dh=1024, N=16, chunk=256)
@@ -980,6 +1166,36 @@ def check_paged(dev, seed: int) -> dict:
             plain = cuda_ms(lambda: A.paged_decode_attention_plain(
                 q, kp, vp, tbl, lens), 20)
         del q, kp, vp, want
+    # pixtral's heads (G 4 over 8 kv heads, d 160): bf16 short and filled,
+    # f32 filled; the bf16 short shape timed cold
+    for name, shape in (("bf16_d160_short", "short"),
+                        ("bf16_d160_filled", "filled"),
+                        ("f32_d160", "filled")):
+        sets = DB.cache_sets(shape, "paged", dev, seed, heads=PIXTRAL_HEADS)
+        args = sets[0]
+        if name.startswith("f32"):
+            args = tuple(t.float() if t.dtype == torch.bfloat16 else t
+                         for t in args)
+        r = decode_close(A.paged_decode_attention(*args),
+                         A.paged_decode_attention_plain(*args), args[-1])
+        if not r["ok"]:
+            raise AssertionError(f"paged decode {name}: {r}")
+        out[name] = r
+        if name == "bf16_d160_short":
+            m = DB.measure(A.paged_decode_attention, sets,
+                           DB.SHAPES[shape]["calls"])
+            if m["kernels_per_call"] != 1:
+                raise AssertionError(f"a d-160 paged call ran "
+                                     f"{m['kernels']}, not one kernel")
+            out["d160_times"] = {
+                "short": {"ms": m["device_ms"], "issue_ms": m["issue_ms"],
+                          "bound_ms": DB.bound(shape, True,
+                                               PIXTRAL_HEADS)[0],
+                          "plain_ms": cuda_ms(
+                              lambda: A.paged_decode_attention_plain(*args),
+                              20),
+                          "max_abs_err": r["max_abs"]}}
+        del sets, args
     torch.cuda.empty_cache()
     out["times"] = time_decode(A.paged_decode_attention, "paged", dev)
     t = out["times"]["short"]
@@ -1002,6 +1218,10 @@ def decode_row(res: dict) -> dict:
                       max(e["slot_norm_rel"] for e in bf16),
                       **({"group_shapes": res["group_times"]}
                          if "group_times" in res else {}),
+                      **({"d160": {k: res[k] for k in (
+                          "long_times", "d160_times") if k in res}}
+                         if any(k in res for k in ("long_times",
+                                                   "d160_times")) else {}),
                       "issue_ms": times["short"]["issue_ms"], **{
                           f"{shape}_context": {
                               "ms": times[shape]["device_ms"],
@@ -1072,18 +1292,169 @@ def run_engine(E, cfg, params, sessions, ecfg, device, max_steps=8000,
     return eng
 
 
-def engine_parity(dev, seed: int) -> dict:
+POISON_AFTER = 40        # steps before control_full poisons the daemon
+
+
+def poison_daemon(eng) -> None:
+    """control_full's hook: wedge the daemon after ``POISON_AFTER`` steps,
+    as the engine tests do."""
+    if eng.step_no == POISON_AFTER:
+        eng.cg.backend._wedged = True
+
+
+def cpu_reference(key: str, seed: int) -> dict:
+    """The report of one reduced f32 run on the CPU that a full-width run
+    on the card must equal: ``engine_full`` and ``sharded`` (engine_full's
+    sessions on the device table and on the 2-shard sharded one),
+    ``serve`` (serve_full's sessions, also control_full's device run),
+    ``async`` and ``poisoned`` (control_full's daemon runs) and
+    ``family:<arch>`` (families_full's); for ``parity:<arch>:<mode>``,
+    engine_parity's CPU run of the reduced ``arch`` in a
+    ``PARITY_MODES`` mode (``parity_run``: report, token streams,
+    retuner actions)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import domains as D
-    from repro_torch.core import sched as Sched
+    from repro_torch.launch import serve as SV
     from repro_torch.models import model as M
     from repro_torch.serving import engine as E
     from repro_torch.serving import session as S
 
-    cfg = dataclasses.replace(reduced(get_config("llama3.2-3b")),
-                              dtype="float32")
+    with contextlib.redirect_stdout(io.StringIO()):
+        if key.startswith("parity:"):
+            _, arch, mode = key.split(":")
+            cfg, params = parity_model(arch, seed)
+            return parity_run(parity_engine(cfg, params, mode, "cpu"))
+        if key in ("engine_full", "sharded"):
+            small = dataclasses.replace(reduced(get_config("llama3.2-3b")),
+                                        dtype="float32")
+            shards = dict(backend="sharded", n_shards=2) \
+                if key == "sharded" else {}
+            return run_engine(E, small, M.init_params(
+                small, torch.Generator().manual_seed(seed), device="cpu"),
+                full_sessions(S, D, seed),
+                E.EngineConfig(**FULL_ENGINE, **shards), "cpu").report()
+        if key.startswith("family:"):
+            return SV.run(SV.parser().parse_args(
+                SERVE_FULL[2:] + ["--arch", key.split(":", 1)[1], "--seed",
+                                  str(seed), "--reduced", "--device", "cpu"]))
+        small = SV.parser().parse_args(SERVE_FULL + [
+            "--seed", str(seed), "--reduced", "--device", "cpu"])
+        if key == "serve":
+            return SV.run(small)
+        eng, _ = SV.serve(small, backend="async", after_step=(
+            poison_daemon if key == "poisoned" else None))
+        try:
+            return eng.report()
+        finally:
+            eng.close()
+
+
+def _cpu_worker() -> None:
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(1)
+
+
+class CpuRefs:
+    """The reduced CPU runs (``cpu_reference``) of the phases to run,
+    started with the script in worker processes of their own (spawned,
+    one thread each, no card) so that they run while the card works;
+    ``get`` waits for one and raises its failure, ``close`` stops the
+    workers."""
+    WORKERS = 4
+    WAIT_S = 900
+
+    def __init__(self, phases: list, seed: int):
+        keys = []
+        for phase, want in (("engine_parity",
+                             [f"parity:llama3.2-3b:{m}" for m in PARITY_MODES]
+                             + [f"parity:{a}:inkernel"
+                                for a in PARITY_FAMILIES]),
+                            ("engine_full", ["engine_full"]),
+                            ("serve_full", ["serve"]),
+                            ("families_full",
+                             [f"family:{a}" for a in FAMILIES_FULL]),
+                            ("control_full",
+                             ["serve", "async", "poisoned", "sharded"])):
+            if phase in phases:
+                keys += [k for k in want if k not in keys]
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            min(self.WORKERS, len(keys)), initializer=_cpu_worker) \
+            if keys else None
+        self.runs = {k: self.pool.apply_async(cpu_reference, (k, seed))
+                     for k in keys}
+
+    def get(self, key: str) -> dict:
+        return self.runs[key].get(timeout=self.WAIT_S)
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+
+
+# engine_parity's engine settings: the JAX package's engine tests' slots,
+# pool and LOW ``memory.high``, in each mode (``adaptive``: the
+# closed-loop retuner of its engine test, acting on the live engine)
+PARITY_COMMON = dict(max_slots=4, s_max=384, pool_pages=40, page_tokens=16,
+                     session_high={"lo1": 12, "lo2": 12})
+PARITY_MODES = {
+    "inkernel": dict(mode="inkernel", use_freeze=True),
+    "userspace": dict(mode="userspace", use_freeze=False,
+                      use_tool_domains=False, use_intent=False),
+    "inkernel_sched": dict(mode="inkernel", use_freeze=True, sched_slots=2),
+    "inkernel_adaptive": dict(mode="inkernel", use_freeze=True)}
+
+
+def parity_model(arch: str, seed: int):
+    """The reduced f32 ``arch`` and its seeded CPU weights, Mamba and
+    xLSTM leaves widened (``lively``, ``lively_xlstm``)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
     params = M.init_params(cfg, torch.Generator().manual_seed(seed),
                            device="cpu")
+    if "mamba" in cfg.layer_kinds():
+        lively(cfg, params, seed)
+    elif cfg.xlstm is not None:
+        lively_xlstm(cfg, params, seed)
+    return cfg, params
+
+
+def parity_engine(cfg, params, mode: str, device):
+    """``parity_sessions`` through the engine in a ``PARITY_MODES`` mode:
+    the finished engine."""
+    from repro_torch.core import domains as D
+    from repro_torch.core import sched as Sched
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import session as S
+
+    kw = dict(PARITY_MODES[mode])
+    if mode == "inkernel_adaptive":
+        kw["adaptive"] = AdaptiveConfig(high_frac=0.01, low_frac=0.0,
+                                        cooldown_ms=50.0,
+                                        watch=("/t/lo1", "/t/lo2"))
+    # weighted slots exist only under the weighted-fair program
+    prog = Sched.WeightedFairProgram() if "sched_slots" in kw else None
+    return run_engine(E, cfg, params, parity_sessions(S, D),
+                      E.EngineConfig(**PARITY_COMMON, **kw), device,
+                      prog=prog)
+
+
+def parity_run(eng) -> dict:
+    """What engine_parity compares of a finished engine: its report, its
+    sessions' greedy token streams and the retuner's actions."""
+    return {"report": eng.report(),
+            "tokens": {sid: x.out_tokens for sid, x in eng.sessions.items()},
+            "actions": [(e.render(), e.t_ms) for e in eng._adaptive.events]
+            if eng._adaptive is not None else []}
+
+
+def engine_parity(dev, seed: int, refs: CpuRefs) -> dict:
+    from repro_torch.models import model as M
+
+    cfg, params = parity_model("llama3.2-3b", seed)
     gparams = to_device(params, dev)
     # decode logits, CPU against the card, over a few steps
     rng = np.random.default_rng(seed)
@@ -1105,53 +1476,26 @@ def engine_parity(dev, seed: int) -> dict:
         lengths = lengths + 1
     if not logit_err <= 1e-4:
         raise AssertionError(f"decode logits differ by {logit_err}")
-    common = dict(max_slots=4, s_max=384, pool_pages=40, page_tokens=16,
-                  session_high={"lo1": 12, "lo2": 12})
-    modes = {"inkernel": dict(mode="inkernel", use_freeze=True),
-             "userspace": dict(mode="userspace", use_freeze=False,
-                               use_tool_domains=False, use_intent=False),
-             "inkernel_sched": dict(mode="inkernel", use_freeze=True,
-                                    sched_slots=2)}
+    # each mode's report on the CPU (a worker's) and on the card; with
+    # the retuner, its actions too
     reports = {}
-    for mode, kw in modes.items():
-        ecfg = E.EngineConfig(**common, **kw)
-        # weighted slots exist only under the weighted-fair program
-        prog = (Sched.WeightedFairProgram() if "sched_slots" in kw
-                else None)
-        rc = run_engine(E, cfg, params, parity_sessions(S, D), ecfg,
-                        "cpu", prog=prog).report()
-        rg = run_engine(E, cfg, gparams, parity_sessions(S, D), ecfg,
-                        dev, prog=prog).report()
-        if rc != rg:
-            raise AssertionError(f"{mode} reports differ:\n{rc}\n{rg}")
-        reports[mode] = rg
-    # the closed-loop retuner acting on the live engine (the settings of
-    # the JAX package's engine test): the same report and the same
-    # retune actions on the CPU and on the card
-    from repro_torch.core.adaptive import AdaptiveConfig
-    ecfg = E.EngineConfig(**common, mode="inkernel", use_freeze=True,
-                          adaptive=AdaptiveConfig(
-                              high_frac=0.01, low_frac=0.0, cooldown_ms=50.0,
-                              watch=("/t/lo1", "/t/lo2")))
-    runs = [run_engine(E, cfg, p, parity_sessions(S, D), ecfg, d)
-            for p, d in ((params, "cpu"), (gparams, dev))]
-    acts = [[(e.render(), e.t_ms) for e in r._adaptive.events]
-            for r in runs]
-    rc, rg = (r.report() for r in runs)
-    if rc != rg or acts[0] != acts[1]:
-        raise AssertionError(f"adaptive runs differ:\n{rc}\n{rg}\n"
-                             f"{acts[0]}\n{acts[1]}")
-    if not any(a.startswith("[agentcgroup] PRESSURE") for a, _ in acts[1]):
+    for mode in PARITY_MODES:
+        rc = refs.get(f"parity:llama3.2-3b:{mode}")
+        rg = parity_run(parity_engine(cfg, gparams, mode, dev))
+        if rc["report"] != rg["report"] or rc["actions"] != rg["actions"]:
+            raise AssertionError(f"{mode} runs differ:\n{rc}\n{rg}")
+        reports[mode] = rg["report"]
+    acts = rg["actions"]
+    if not any(a.startswith("[agentcgroup] PRESSURE") for a, _ in acts):
         raise AssertionError("the adaptive retuner never acted")
-    reports["inkernel_adaptive"] = rg
     return {"logits_max_abs_err": logit_err, "reports": reports,
-            "adaptive_actions": len(acts[1]),
-            "families": family_parity(dev, seed)}
+            "adaptive_actions": len(acts),
+            "families": family_parity(dev, seed, refs)}
 
 
 # the decoder families the engine serves beside llama3.2-3b
 PARITY_FAMILIES = ("jamba-v0.1-52b", "xlstm-350m",
-                   "llama4-maverick-400b-a17b")
+                   "llama4-maverick-400b-a17b", "pixtral-12b")
 # xLSTM leaves widened from the schema's scales, where a block moves the
 # residual stream by ~1e-7 (tests/test_torch_families.py::lively)
 LIVELY_XLSTM = ("up", "conv_w", "wq", "wk", "wv", "w_i", "w_f", "down",
@@ -1172,26 +1516,18 @@ def lively_xlstm(cfg, params, seed: int) -> None:
         mix["b_f"].normal_(1.0, 1.0, generator=g)
 
 
-def family_parity(dev, seed: int) -> dict:
-    """The reduced f32 Jamba, xLSTM and llama4-maverick (Jamba's Mamba and
-    xLSTM's leaves widened) on the CPU and on the card, from the same
+def family_parity(dev, seed: int, refs: CpuRefs) -> dict:
+    """The reduced f32 Jamba, xLSTM, llama4-maverick and pixtral-12b
+    (Jamba's Mamba and xLSTM's leaves widened) on the CPU and on the card,
+    from the same
     weights: decode logits within 1e-4 with the same argmax over 4 steps,
     then parity_sessions in inkernel mode: the same report and the same
     greedy token streams."""
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.core import domains as D
     from repro_torch.models import model as M
-    from repro_torch.serving import engine as E
-    from repro_torch.serving import session as S
 
     out = {}
     for arch in PARITY_FAMILIES:
-        cfg = dataclasses.replace(reduced(get_config(arch)),
-                                  dtype="float32")
-        params = M.init_params(cfg, torch.Generator().manual_seed(seed),
-                               device="cpu")
-        (lively if "mamba" in cfg.layer_kinds() else lively_xlstm)(
-            cfg, params, seed)
+        cfg, params = parity_model(arch, seed)
         gparams = to_device(params, dev)
         rng = np.random.default_rng(seed)
         states = {"cpu": M.decode_state(cfg, 4, 64, "cpu"),
@@ -1211,15 +1547,10 @@ def family_parity(dev, seed: int) -> dict:
             lengths = lengths + 1
         if not err <= 1e-4:
             raise AssertionError(f"{arch}: decode logits differ by {err}")
-        ecfg = E.EngineConfig(max_slots=4, s_max=384, pool_pages=40,
-                              page_tokens=16, mode="inkernel",
-                              use_freeze=True,
-                              session_high={"lo1": 12, "lo2": 12})
-        runs = [run_engine(E, cfg, p, parity_sessions(S, D), ecfg, d)
-                for p, d in ((params, "cpu"), (gparams, dev))]
-        (rc, rg), (sc, sg) = ([r.report() for r in runs],
-                              [{sid: x.out_tokens for sid, x in
-                                r.sessions.items()} for r in runs])
+        cpu = refs.get(f"parity:{arch}:inkernel")
+        card = parity_run(parity_engine(cfg, gparams, "inkernel", dev))
+        (rc, rg), (sc, sg) = ((cpu["report"], card["report"]),
+                              (cpu["tokens"], card["tokens"]))
         if rc != rg:
             raise AssertionError(f"{arch} reports differ:\n{rc}\n{rg}")
         if sc != sg:
@@ -1231,8 +1562,8 @@ def family_parity(dev, seed: int) -> dict:
     return out
 
 
-def engine_full(dev, seed: int) -> dict:
-    from repro_torch.configs import get_config, reduced
+def engine_full(dev, seed: int, refs: CpuRefs) -> dict:
+    from repro_torch.configs import get_config
     from repro_torch.core import domains as D
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import model as M
@@ -1241,11 +1572,6 @@ def engine_full(dev, seed: int) -> dict:
 
     cfg = get_config("llama3.2-3b")
     ecfg = E.EngineConfig(**FULL_ENGINE)
-    # the control reference: the same sessions at reduced width on the CPU
-    small = dataclasses.replace(reduced(cfg), dtype="float32")
-    ref = run_engine(E, small, M.init_params(
-        small, torch.Generator().manual_seed(seed), device="cpu"),
-        full_sessions(S, D, seed), ecfg, "cpu").report()
 
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
@@ -1290,6 +1616,8 @@ def engine_full(dev, seed: int) -> dict:
             "ssd_scan": 0}
     if counts != want:
         raise AssertionError(f"launches {counts}, expected {want}")
+    # the control reference: the same sessions at reduced width on the CPU
+    ref = refs.get("engine_full")
     if report != ref:
         raise AssertionError(f"full-width report differs from the reduced "
                              f"CPU run:\n{report}\n{ref}")
@@ -1603,6 +1931,206 @@ def prefill_full(dev, seed: int) -> dict:
             "flash_fwd_prefill_library_ms": lib_ms}
 
 
+def frontend_parity(dev, seed: int) -> dict:
+    """The reduced f32 hubert-xlarge (two layers, MHA, bidirectional,
+    ``remat="dots"``) trained 3 steps on the card through the flash
+    kernels and 3 on the CPU through their plain versions, from the same
+    weights and masked-frame batches: losses within 1e-4.  The reduced f32
+    pixtral-12b forward with patches on both, from the same weights and
+    batch: logits within 1e-4 with the same argmax."""
+    from repro_torch.configs import SHAPES, get_config, reduced
+    from repro_torch.data.pipeline import DataIterator
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.perf import DEFAULT_PERF, replace
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+
+    cfg = dataclasses.replace(reduced(get_config("hubert-xlarge")),
+                              dtype="float32", n_layers=2)
+    perf = replace(DEFAULT_PERF, remat="dots")
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    losses = {}
+    reset_launch_counts()
+    for where in ("cpu", dev):
+        params = to_device(M.init_params(
+            cfg, torch.Generator().manual_seed(seed), device="cpu"), where)
+        state = init_train_state(cfg, params, perf)
+        step = make_train_step(cfg, perf, opt)
+        data = DataIterator(cfg, SHAPES["train_4k"], seed=seed, batch=4,
+                            seq=256, device=where)
+        losses[str(where)] = []
+        for i in range(3):
+            params, state, m = step(params, state, data.at(i), i)
+            losses[str(where)].append(float(m["loss"]))
+    counts = launch_counts()
+    if counts["flash_fwd"] != 3 * 2 * 2 or counts["flash_bwd"] != 3 * 2:
+        raise AssertionError(f"hubert parity launches {counts}")
+    err = max(abs(a - b) for a, b in zip(losses["cpu"], losses[str(dev)]))
+    if not err <= 1e-4:
+        raise AssertionError(f"hubert losses differ by {err}: {losses}")
+    out = {"hubert_losses": losses, "hubert_max_abs_err": err}
+    pcfg = dataclasses.replace(reduced(get_config("pixtral-12b")),
+                               dtype="float32")
+    params = M.init_params(pcfg, torch.Generator().manual_seed(seed),
+                           device="cpu")
+    batch = DataIterator(pcfg, SHAPES["train_4k"], seed=seed, batch=2,
+                         seq=64, device="cpu").at(0)
+    with torch.inference_mode():
+        want, _ = M.forward(pcfg, params, batch)
+        gparams, gbatch = to_device(params, dev), to_device(batch, dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got, _ = M.forward(pcfg, gparams, gbatch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    if counts["flash_fwd"] != pcfg.n_layers or sum(counts.values()) \
+            != pcfg.n_layers:
+        raise AssertionError(f"pixtral parity launches {counts}")
+    perr = (got.cpu() - want).abs().max().item()
+    if not (perr <= 1e-4 and torch.equal(got.argmax(-1).cpu(),
+                                          want.argmax(-1))):
+        raise AssertionError(f"pixtral forward logits differ by {perr}")
+    out["pixtral_logits_max_abs_err"] = perr
+    return out
+
+
+HUBERT_TRAIN = ["--arch", "hubert-xlarge", "--shape", "train_4k", "--batch",
+                "1", "--seq", "4096", "--steps", "8", "--ckpt-every", "0",
+                "--device", "cuda", "--log-every", "1"]
+PIXTRAL_TIMED = 3
+
+
+def _random_ce(cfg) -> float:
+    """Where random weights put the cross-entropy: a std-0.02 head against
+    unit-RMS final activations gives logits of variance d * 0.02**2, so
+    the CE is ln V + var / 2, plus the loss's 1e-4 z-loss of that
+    log-partition."""
+    logz = float(np.log(cfg.padded_vocab)) + cfg.d_model * 0.02 ** 2 / 2
+    return logz + 1e-4 * logz ** 2
+
+
+def hubert_train_full(dev, seed: int) -> dict:
+    """``launch.train --arch hubert-xlarge`` at full width (48 layers, d
+    1280, bf16, seeded random weights on the card), train_4k's sequence
+    of 4096 frames at batch 1, the masked-frame loss, ``remat="dots"``,
+    8 steps (2 untimed): finite losses, the first where random weights
+    put it, and the flash launches the layers imply (the forward twice a
+    layer a step under dots remat, the backward once)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+
+    cfg = get_config("hubert-xlarge")
+    args = train.parse_args(HUBERT_TRAIN + ["--seed", str(seed)])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = train.run(args)
+    counts = launch_counts()
+    losses = report["losses"]
+    if len(losses) != args.steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"hubert_train_full losses {losses}")
+    expect = _random_ce(cfg)
+    if not abs(losses[0] - expect) <= 0.5:
+        raise AssertionError(f"hubert first loss {losses[0]}, expected "
+                             f"{expect}")
+    want = {k: 0 for k in counts}
+    want.update(flash_fwd=2 * cfg.n_layers * args.steps,
+                flash_bwd=cfg.n_layers * args.steps)
+    if counts != want:
+        raise AssertionError(f"hubert_train_full launches {counts}, "
+                             f"expected {want}")
+    timed = report["step_s"][TRAIN_WARM:]
+    p50 = statistics.median(timed)
+    return {"args": HUBERT_TRAIN, "layers": cfg.n_layers,
+            "params": cfg.param_count(), "timed_steps": len(timed),
+            "step_s": report["step_s"], "step_s_p50": p50,
+            "tokens_per_s": report["tokens_per_step"] / p50,
+            "peak_memory_gb": report["peak_memory_gb"], "losses": losses,
+            "first_loss_expected": expect, "launches": counts}
+
+
+def pixtral_forward_full(dev, seed: int) -> dict:
+    """``models/model.py::forward`` under ``torch.inference_mode()`` on
+    the full-width pixtral-12b (40 layers, d 5120, bf16, seeded random
+    weights on the card) over train_4k's batch of one 4096-token
+    sequence whose first 1,024 positions are patch embeddings (the data
+    pipeline's vision batch): one untimed and ``PIXTRAL_TIMED`` timed
+    calls, each 40 d-160 flash-forward launches; finite logits and the
+    cross-entropy of the text positions where random weights put it."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data.pipeline import DataIterator
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import cross_entropy
+
+    cfg = get_config("pixtral-12b")
+    seq = SHAPES["train_4k"].seq_len
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = DataIterator(cfg, SHAPES["train_4k"], seed=seed, batch=1,
+                         seq=seq, device=dev).at(0)
+    n = batch["patches"].shape[1]
+    torch.cuda.reset_peak_memory_stats(dev)
+    forward_s = []
+    with torch.inference_mode():
+        for i in range(1 + PIXTRAL_TIMED):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t = time.perf_counter()
+            logits, _ = M.forward(cfg, params, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            counts = launch_counts()
+            if counts["flash_fwd"] != cfg.n_layers or \
+                    sum(counts.values()) != cfg.n_layers:
+                raise AssertionError(f"pixtral forward launches {counts}")
+            if i:
+                forward_s.append(dt)
+            if i < PIXTRAL_TIMED:
+                del logits
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        if tuple(logits.shape) != (1, seq, cfg.padded_vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError("pixtral logits are not finite")
+        ce = float(cross_entropy(logits, batch["labels"], batch["weights"]))
+        del logits
+    expect = _random_ce(cfg)
+    if not abs(ce - expect) <= 0.5:
+        raise AssertionError(f"pixtral text cross-entropy {ce}, expected "
+                             f"{expect}")
+    if batch["weights"][:, :n].any():
+        raise AssertionError("loss weight on a patch position")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params
+    p50 = statistics.median(forward_s)
+    return {"layers": cfg.n_layers, "seq": seq, "patches": n,
+            "params": n_params, "init_s": init_s, "forward_s": forward_s,
+            "forward_s_p50": p50, "tokens_per_s": seq / p50,
+            "peak_memory_gb": peak_gb, "cross_entropy": ce,
+            "cross_entropy_expected": expect, "launches": counts}
+
+
+def frontends_full(dev, seed: int) -> dict:
+    """The frontend families on the card: ``frontend_parity``,
+    ``hubert_train_full`` and ``pixtral_forward_full``."""
+    import gc
+
+    out = {"frontend_parity": frontend_parity(dev, seed),
+           "hubert_train_full": hubert_train_full(dev, seed)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["pixtral_forward_full"] = pixtral_forward_full(dev, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_step(dev, seed: int, warm: int = 40, steps: int = 30) -> dict:
     """Where the full-width step's time goes: ``torch.profiler`` over
     ``steps`` engine steps after ``warm`` steps of the engine_full
@@ -1856,7 +2384,7 @@ def gate_check(dev, gated: list, what: str):
     return check
 
 
-def serve_full(dev, seed: int) -> dict:
+def serve_full(dev, seed: int, refs: CpuRefs) -> dict:
     """``repro_torch.launch.serve`` at full width on the card, checked
     against the same sessions at reduced width on the CPU; the gate is
     read on the live table after each step (as engine_full does)."""
@@ -1864,10 +2392,7 @@ def serve_full(dev, seed: int) -> dict:
     from repro_torch.launch import serve as SV
 
     args = SV.parser().parse_args(SERVE_FULL + ["--seed", str(seed)])
-    with contextlib.redirect_stdout(io.StringIO()):
-        ref = SV.run(SV.parser().parse_args(
-            SERVE_FULL + ["--seed", str(seed), "--reduced", "--device",
-                          "cpu"]))
+    ref = refs.get("serve")
     gated = [0]
     check_gate = gate_check(dev, gated, "serve_full")
     torch.cuda.synchronize()
@@ -1913,6 +2438,7 @@ FAMILIES_FULL = {
     "phi3-medium-14b": (0, None),
     "minicpm-2b": (0, None),
     "internlm2-20b": (0, None),
+    "pixtral-12b": (0, None),
     "llama4-maverick-400b-a17b": (
         2, "48 -> 2 layers: one dense + MoE group; the 128-expert MoE "
            "layer alone holds ~16.1 B parameters (~32 GB in bf16)"),
@@ -1978,7 +2504,8 @@ def check_recurrent_slots(eng, dev, seed: int) -> dict:
             "thaw_slot": (free[-1], slot)}
 
 
-def families_full(dev, seed: int, served: dict = None) -> dict:
+def families_full(dev, seed: int, refs: CpuRefs,
+                  served: dict = None) -> dict:
     """``repro_torch.launch.serve`` on each family of ``FAMILIES_FULL`` at
     full width (bf16, random weights from a seeded generator on the
     card), over serve_full's 8 trace-derived sessions, slots, pool and
@@ -1999,9 +2526,7 @@ def families_full(dev, seed: int, served: dict = None) -> dict:
                served["step_ms_p50"] if served else None, "runs": {}}
     for arch, (layers, _) in FAMILIES_FULL.items():
         base = SERVE_FULL[2:] + ["--arch", arch, "--seed", str(seed)]
-        with contextlib.redirect_stdout(io.StringIO()):
-            ref = SV.run(SV.parser().parse_args(base + ["--reduced",
-                                                        "--device", "cpu"]))
+        ref = refs.get(f"family:{arch}")
         args = SV.parser().parse_args(
             base + (["--layers", str(layers)] if layers else []))
         gated = [0]
@@ -2059,9 +2584,6 @@ def families_full(dev, seed: int, served: dict = None) -> dict:
     return out
 
 
-POISON_AFTER = 40        # steps before control_full poisons the daemon
-
-
 def _launches_as_steps(counts: dict, steps: int, layers: int,
                        what: str) -> None:
     """One charge launch a step (over every shard), the decode kernel a
@@ -2072,7 +2594,8 @@ def _launches_as_steps(counts: dict, steps: int, layers: int,
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 
 
-def control_full(dev, seed: int, served: dict = None) -> dict:
+def control_full(dev, seed: int, refs: CpuRefs,
+                 served: dict = None) -> dict:
     """The control planes beside the device table at full width
     (llama3.2-3b, bf16, random weights from a seeded generator on the
     card), each run against the same run at reduced width on the CPU:
@@ -2093,7 +2616,7 @@ def control_full(dev, seed: int, served: dict = None) -> dict:
     Every run: one charge launch a step for all its shards, 28 decode
     launches a step, nothing else; step p50/p95 (host clock ending in a
     synchronize), printed and not asserted."""
-    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs import get_config
     from repro_torch.core import domains as D
     from repro_torch.core.daemon import AsyncDaemonBackend
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2103,24 +2626,13 @@ def control_full(dev, seed: int, served: dict = None) -> dict:
     from repro_torch.serving import session as S
 
     args = SV.parser().parse_args(SERVE_FULL + ["--seed", str(seed)])
-    small = SV.parser().parse_args(SERVE_FULL + ["--seed", str(seed),
-                                                 "--reduced", "--device",
-                                                 "cpu"])
-
-    def poison(eng):
-        if eng.step_no == POISON_AFTER:
-            eng.cg.backend._wedged = True     # as the engine tests do
-
     out = {}
-    with contextlib.redirect_stdout(io.StringIO()):
-        device_ref = SV.run(small)
+    device_ref = refs.get("serve")
     if served is not None and served != device_ref:
         raise AssertionError("serve_full's report differs from its reduced "
                              "CPU run")
-    for name, hook in (("async", None), ("poisoned", poison)):
-        ref_eng, _ = SV.serve(small, after_step=hook, backend="async")
-        ref = ref_eng.report()
-        ref_eng.close()
+    for name, hook in (("async", None), ("poisoned", poison_daemon)):
+        ref = refs.get(name)
         if name == "async" and ref != device_ref:
             raise AssertionError(f"reduced async run differs from the "
                                  f"device run:\n{ref}\n{device_ref}")
@@ -2154,10 +2666,7 @@ def control_full(dev, seed: int, served: dict = None) -> dict:
 
     cfg = get_config("llama3.2-3b")
     ecfg = E.EngineConfig(**FULL_ENGINE, backend="sharded", n_shards=2)
-    tiny = dataclasses.replace(reduced(cfg), dtype="float32")
-    ref = run_engine(E, tiny, M.init_params(
-        tiny, torch.Generator().manual_seed(seed), device="cpu"),
-        full_sessions(S, D, seed), ecfg, "cpu").report()
+    ref = refs.get("sharded")
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                            device=dev)
     eng = E.Engine(cfg, params, ecfg=ecfg, seed=0, device=dev)
@@ -2218,25 +2727,33 @@ def main() -> None:
                     default="kernels,engine_parity,engine_full,conformance,"
                             "replay,serve_full,families_full,control_full,"
                             "train_parity,train_full,prefill_parity,"
-                            "prefill_full",
+                            "prefill_full,frontends_full",
                     help="comma-separated phases to run, of kernels, "
                          "engine_parity, engine_full, conformance, replay, "
                          "serve_full, families_full, control_full, "
                          "train_parity, train_full, prefill_parity, "
-                         "prefill_full, and profile, train_profile and "
-                         "prefill_profile (not in the default run); the "
-                         "result line is printed only when kernels, "
-                         "engine_full, conformance, serve_full, "
-                         "families_full, control_full, train_full and "
-                         "prefill_full ran")
+                         "prefill_full, frontends_full, and profile, "
+                         "train_profile and prefill_profile (not in the "
+                         "default run); the result line is printed only "
+                         "when kernels, engine_full, conformance, "
+                         "serve_full, families_full, control_full, "
+                         "train_full, prefill_full and frontends_full ran")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
-    from repro_torch.kernels import _build
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    refs = CpuRefs(phases, args.seed)
+    try:
+        run_phases(phases, args.seed, refs)
+    finally:
+        refs.close()
+
+
+def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
+    from repro_torch.kernels import _build
+
     dev = torch.device("cuda", 0)
     card = card_line()
     t0 = time.perf_counter()
@@ -2257,18 +2774,28 @@ def main() -> None:
     rows = None
     if "kernels" in phases:
         emit({"phase": "sass", **kernel_sass(libs)})
-        enf = check_enforcement(dev, args.seed)
-        shards = check_shard_enforcement(dev, args.seed)
-        tim = time_enforcement(dev, args.seed)
-        dec = check_decode(dev, args.seed)
-        pag = check_paged(dev, args.seed)
-        fla = check_flash(dev, args.seed)
-        ssd = check_ssd(dev, args.seed)
-        emit({"phase": "kernels", "card": card, "enforcement": enf,
+        secs = {}
+
+        def timed(check):
+            t = time.perf_counter()
+            res = check(dev, seed)
+            secs[check.__name__] = time.perf_counter() - t
+            return res
+
+        enf = timed(check_enforcement)
+        shards = timed(check_shard_enforcement)
+        tim = timed(time_enforcement)
+        dec = timed(check_decode)
+        pag = timed(check_paged)
+        fla = timed(check_flash)
+        front = timed(check_flash_frontends)
+        ssd = timed(check_ssd)
+        emit({"phase": "kernels", "card": card, "seconds": secs,
+              "enforcement": enf,
               "enforcement_shards": shards,
               "enforcement_times": tim, "decode_attention": dec,
               "paged_decode_attention": pag, "flash_attention": fla,
-              "ssd_scan": ssd})
+              "flash_attention_frontends": front, "ssd_scan": ssd})
         rows = {
             "fused_charge_batch": dict(
                 source="src/repro_torch/csrc/enforcement.cu",
@@ -2293,12 +2820,16 @@ def main() -> None:
                 replaces="src/repro/kernels/decode_attention.py:166",
                 **decode_row(pag)),
         }
+        cases = dict(fla, **{k: v for k, v in front.items()
+                             if k.startswith(("d160", "hubert"))})
+        hubert = front["times"]["hubert_d80_full"]
         for name, parts in (("flash_fwd", ("out", "lse")),
                             ("flash_bwd", ("dq", "dk", "dv"))):
-            errs = [e[k] for case, e in fla.items()
+            errs = [e[k] for case, e in cases.items()
                     if case.startswith(("train", "ragged", "cross",
-                                        "head", "group"))
-                    for k in parts]
+                                        "head", "group", "d160", "hubert"))
+                    for k in parts if k in e]
+            pas = name.split("_")[1]
             rows[name] = dict(
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:92",
@@ -2306,9 +2837,12 @@ def main() -> None:
                 norm_rel_err=max(e["norm_rel"] for e in errs),
                 timing=fla["timing"][name],
                 extra={"group_shapes": {
-                    case: {k: v for k, v in t.items()
-                           if k.startswith(name.split("_")[1])}
-                    for case, t in fla["family_times"].items()}})
+                    case: {k: v for k, v in t.items() if k.startswith(pas)}
+                    for case, t in fla["family_times"].items()},
+                    "hubert_d80_full": {k: v for k, v in hubert.items()
+                                        if k.startswith(pas)}})
+        rows["flash_fwd"]["extra"]["pixtral_d160"] = \
+            front["times"]["pixtral_d160"]
         ssd_errs = [e[k] for case, e in ssd.items()
                     if case not in ("timing", "kernel_ms")
                     for k in ("y", "h")]
@@ -2320,55 +2854,60 @@ def main() -> None:
             timing=ssd["timing"], kernel_ms=ssd["kernel_ms"])
     if "engine_parity" in phases:
         emit({"phase": "engine_parity", "card": card,
-              **engine_parity(dev, args.seed)})
+              **engine_parity(dev, seed, refs)})
     full = None
     if "engine_full" in phases:
-        full = engine_full(dev, args.seed)
+        full = engine_full(dev, seed, refs)
         emit({"phase": "engine_full", "card": card, **full})
     conf = None
     if "conformance" in phases:
-        conf = conformance(dev, args.seed)
+        conf = conformance(dev, seed)
         emit({"phase": "conformance", "card": card, **conf})
     if "replay" in phases:
-        emit({"phase": "replay", **replay_drivers(args.seed)})
+        emit({"phase": "replay", **replay_drivers(seed)})
     served = None
     if "serve_full" in phases:
-        served = serve_full(dev, args.seed)
+        served = serve_full(dev, seed, refs)
         emit({"phase": "serve_full", "card": card, **served})
     fams = None
     if "families_full" in phases:
-        fams = families_full(dev, args.seed, served)
+        fams = families_full(dev, seed, refs, served)
         emit({"phase": "families_full", "card": card, **fams})
     ctrl = None
     if "control_full" in phases:
-        ctrl = control_full(dev, args.seed,
+        ctrl = control_full(dev, seed, refs,
                             served["report"] if served else None)
         emit({"phase": "control_full", "card": card, **ctrl})
     if "train_parity" in phases:
         emit({"phase": "train_parity", "card": card,
-              **train_parity(dev, args.seed)})
+              **train_parity(dev, seed)})
     train = None
     if "train_full" in phases:
-        train = train_full(dev, args.seed)
+        train = train_full(dev, seed)
         emit({"phase": "train_full", "card": card, **train})
     if "prefill_parity" in phases:
         emit({"phase": "prefill_parity", "card": card,
-              **prefill_parity(dev, args.seed)})
+              **prefill_parity(dev, seed)})
     prefill = None
     if "prefill_full" in phases:
-        prefill = prefill_full(dev, args.seed)
+        prefill = prefill_full(dev, seed)
         emit({"phase": "prefill_full", "card": card, **prefill})
+    fronts = None
+    if "frontends_full" in phases:
+        fronts = frontends_full(dev, seed)
+        emit({"phase": "frontends_full", "card": card, **fronts})
     if "profile" in phases:
         emit({"phase": "profile", "card": card,
-              **profile_step(dev, args.seed)})
+              **profile_step(dev, seed)})
     if "train_profile" in phases:
         emit({"phase": "train_profile", "card": card,
-              **train_profile(dev, args.seed)})
+              **train_profile(dev, seed)})
     if "prefill_profile" in phases:
         emit({"phase": "prefill_profile", "card": card,
-              **prefill_profile(dev, args.seed)})
+              **prefill_profile(dev, seed)})
     if rows is None or full is None or train is None or prefill is None \
-            or conf is None or served is None or ctrl is None or fams is None:
+            or conf is None or served is None or ctrl is None or fams is None \
+            or fronts is None:
         return
     launches = dict(full["launches"], **train["launches"],
                     ssd_scan=prefill["launches_per_prefill"]["ssd_scan"])
@@ -2385,7 +2924,9 @@ def main() -> None:
                **{f"control_full_{k}": c["launches"]
                   for k, c in ctrl.items()},
                **{f"families_full_{k}": c["launches"]
-                  for k, c in fams["runs"].items()}}
+                  for k, c in fams["runs"].items()},
+               **{f"frontends_full_{k}": fronts[k]["launches"]
+                  for k in ("hubert_train_full", "pixtral_forward_full")}}
     # the forward's errors include those at the prefill shape
     fwd = rows["flash_fwd"]
     for e in prefill["flash_fwd_prefill_errs"].values():

@@ -34,7 +34,8 @@
 //   * K and V tiles (64 keys x d) reach shared memory through a ring of
 //     kStages 16-byte cp.async (LDGSTS) stages, rows 16 bytes longer than
 //     d so that ldmatrix meets no bank conflict: two tiles (68 KB at d 128)
-//     are in flight while the third is used, and two CTAs fit an SM.  Keys
+//     are in flight while the third is used, and two CTAs fit an SM.  At d
+//     160 (pixtral-12b) the three stages take 129 KB, one CTA an SM.  Keys
 //     at or past the length are zero-filled, not read.  The paged form
 //     copies its CTA's page-table entries into shared memory once and
 //     issues its copies from there; the entry of a page at or past the
@@ -58,9 +59,10 @@
 //     cluster (two cluster barriers, the remote loads, the CTAs' start);
 //     `python -m repro_torch.kernels.decode_bench --sweep` times it.
 // f32, the parity path, keeps the scalar split_kernel + combine_kernel: a
-// CTA per ~256-key chunk reads its rows with 16-byte loads into registers,
-// and a second launch merges the chunks' partials from scratch that the
-// caller allocates.
+// CTA per ~256-key chunk reads its rows with 16-byte loads into registers
+// (d 160, whose 40 such lanes a row would not divide a warp, with 32 lanes
+// of 5 scalar loads each), and a second launch merges the chunks'
+// partials from scratch that the caller allocates.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -130,6 +132,30 @@ struct Io {
   }
 };
 
+// How a row of D f32 values spreads over the lanes of a row group: D / 4
+// lanes of one 16-byte load each where that divides a warp (d 32, 64,
+// 128), else all 32 lanes of a warp with D / 32 values each, lane l
+// holding columns l, l + 32, ... (d 160: 5 a lane; every warp-wide load
+// is still one contiguous 128-byte line).
+template <int D>
+struct RowLanes {
+  static constexpr bool kVec4 = D / Io::kVec <= 32 && 32 % (D / Io::kVec) == 0;
+  static constexpr int kLanes = kVec4 ? D / Io::kVec : 32;
+  static constexpr int kVec = D / kLanes;
+  static_assert(kLanes * kVec == D, "a row splits evenly over its lanes");
+  __device__ static int col(int lane, int j) {
+    return kVec4 ? lane * kVec + j : lane + kLanes * j;
+  }
+  __device__ static void load(const float* row, int lane, float* out) {
+    if constexpr (kVec4) {
+      Io::load(row + lane * kVec, out);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) out[j] = row[lane + kLanes * j];
+    }
+  }
+};
+
 template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 split_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -138,10 +164,11 @@ split_kernel(const float* __restrict__ q, const float* __restrict__ k,
              float* __restrict__ part_ml, int Hkv, int G, int chunk,
              int n_split, float scale) {
   constexpr int GMAX = kMaxGroup;
-  constexpr int kVec = Io::kVec;
-  constexpr int kLanesK = DK / kVec;           // lanes that share a K row
+  using LK = RowLanes<DK>;
+  using LV = RowLanes<DV>;
+  constexpr int kLanesK = LK::kLanes;          // lanes that share a K row
   constexpr int kRowsK = kThreads / kLanesK;   // K rows in flight per pass
-  constexpr int kLanesV = DV / kVec;
+  constexpr int kLanesV = LV::kLanes;
   constexpr int kRowsV = kThreads / kLanesV;
   static_assert(kLanesK <= 32 && 32 % kLanesK == 0, "row group in a warp");
   static_assert(kLanesV <= 32 && 32 % kLanesV == 0, "row group in a warp");
@@ -166,27 +193,27 @@ split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lanev = tid % kLanesV;
   const int H = Hkv * G;
 
-  float qf[GMAX][kVec];
+  float qf[GMAX][LK::kVec];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     if (g < G) {
-      Io::load(q + (static_cast<size_t>(b) * H + kvh * G + g) * DK +
-                      lanek * kVec, qf[g]);
+      LK::load(q + (static_cast<size_t>(b) * H + kvh * G + g) * DK, lanek,
+               qf[g]);
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) qf[g][j] *= scale;
+      for (int j = 0; j < LK::kVec; ++j) qf[g][j] *= scale;
     } else {
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) qf[g][j] = 0.0f;
+      for (int j = 0; j < LK::kVec; ++j) qf[g][j] = 0.0f;
     }
   }
-  float acc[GMAX][kVec];
+  float acc[GMAX][LV::kVec];
   float m_run[GMAX], l_run[GMAX];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     m_run[g] = -INFINITY;
     l_run[g] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) acc[g][j] = 0.0f;
+    for (int j = 0; j < LV::kVec; ++j) acc[g][j] = 0.0f;
   }
 
   const float* kbase = k + static_cast<size_t>(kvh) * DK;
@@ -200,12 +227,12 @@ split_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) part[g] = 0.0f;
       if (t < end) {
-        float kf[kVec];
-        Io::load(kbase + rows.at(b, t) * Hkv * DK + lanek * kVec, kf);
+        float kf[LK::kVec];
+        LK::load(kbase + rows.at(b, t) * Hkv * DK, lanek, kf);
 #pragma unroll
         for (int g = 0; g < GMAX; ++g)
 #pragma unroll
-          for (int j = 0; j < kVec; ++j) part[g] += qf[g][j] * kf[j];
+          for (int j = 0; j < LK::kVec; ++j) part[g] += qf[g][j] * kf[j];
       }
 #pragma unroll
       for (int g = 0; g < GMAX; ++g)
@@ -253,20 +280,20 @@ split_kernel(const float* __restrict__ q, const float* __restrict__ k,
         m_run[g] = m_new[g];
       }
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) acc[g][j] *= alpha[g];
+      for (int j = 0; j < LV::kVec; ++j) acc[g][j] *= alpha[g];
     }
     // P.V: each row group accumulates its own rows of the tile
     for (int r = rowv; r < kTile; r += kRowsV) {
       const int t = t0 + r;
       if (t >= end) break;
-      float vf[kVec];
-      Io::load(vbase + rows.at(b, t) * Hkv * DV + lanev * kVec, vf);
+      float vf[LV::kVec];
+      LV::load(vbase + rows.at(b, t) * Hkv * DV, lanev, vf);
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
         if (g < G) {
           const float p = scores[g][r];
 #pragma unroll
-          for (int j = 0; j < kVec; ++j) acc[g][j] += p * vf[j];
+          for (int j = 0; j < LV::kVec; ++j) acc[g][j] += p * vf[j];
         }
       }
     }
@@ -278,8 +305,8 @@ split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int g = 0; g < GMAX; ++g)
     if (g < G)
 #pragma unroll
-      for (int j = 0; j < kVec; ++j)
-        red[(rowv * GMAX + g) * DV + lanev * kVec + j] = acc[g][j];
+      for (int j = 0; j < LV::kVec; ++j)
+        red[(rowv * GMAX + g) * DV + LV::col(lanev, j)] = acc[g][j];
   __syncthreads();
   const size_t part = (static_cast<size_t>(b) * Hkv + kvh) * n_split + split;
   for (int i = tid; i < G * DV; i += kThreads) {
@@ -697,6 +724,7 @@ cudaError_t by_dv(int DV, int dtype, const Args& a) {
 // dtype: 0 = float32, 1 = bfloat16.  page_table (B, cap / page) int32
 // selects the paged form (k (n_pages, page, Hkv, DK), v (n_pages, page,
 // Hkv, DV)); nullptr the dense one (k, v (B, cap, Hkv, D), cap = S_max).
+// DK and DV in {32, 64, 128} in any pair, or both 160.
 // splits: CTAs per (kv head, slot); in bf16 the cluster size, 1 to 8; in
 // f32 the chunks, whose partials take part_acc B*Hkv*splits*G*DV and
 // part_ml B*Hkv*splits*G*2 floats of scratch (bf16 reads neither).
@@ -714,6 +742,8 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   const Args a{q, k, v, lengths, make_rows(page_table, cap, page), out,
                part_acc, part_ml, B, H, Hkv, splits, scale,
                static_cast<cudaStream_t>(stream)};
+  if (DK == 160 || DV == 160)
+    return DK == DV ? launch<160, 160>(dtype, a) : cudaErrorInvalidValue;
   switch (DK) {
     case 32: return by_dv<32>(DV, dtype, a);
     case 64: return by_dv<64>(DV, dtype, a);

@@ -18,7 +18,8 @@
 // above the card's balance point, so the products belong on the tensor
 // cores.  Which dtype takes which kernel:
 //
-// bf16 (every caller on the card: training, Jamba prefill):
+// bf16 (every caller on the card: training, Jamba prefill, pixtral's
+// forward; the backward takes d <= 128, the forward also d 160):
 //   fwd_wgmma_kernel  one CTA per (128 query rows, head, batch): two
 //                 consumer warpgroups of 64 rows and a producer warpgroup
 //                 that hands its registers to them (setmaxnreg).
@@ -26,8 +27,9 @@
 //                 128-key K and V tiles by TMA (4-D tensor maps over (d,
 //                 heads, rows, batch), boxes of 64 columns x 128 rows in the
 //                 128-byte swizzle, rows past S / Sk and columns past d
-//                 zero-filled; d 32 and 80 run padded to 64 and 128), with
-//                 full/empty mbarrier pairs.  Each consumer computes
+//                 zero-filled; d 32 and 80 run padded to 64 and 128; d 160
+//                 in boxes of 32 columns in the 64-byte swizzle, FwdTile),
+//                 with full/empty mbarrier pairs.  Each consumer computes
 //                 S = Q K^T by wgmma m64n128k16 with both operands in shared
 //                 memory, the online softmax on the accumulator fragments
 //                 (exp2 with scale * log2(e) folded in, row reductions over
@@ -558,17 +560,38 @@ constexpr int kFwdConsumers = 256;
 constexpr int kFwdThreads = kFwdConsumers + 128;
 constexpr uint32_t kProducerRegs = 40;
 constexpr uint32_t kConsumerRegs = 232;
-constexpr int kBoxCols = 64;      // bf16 columns of a box: one 128-byte row
-constexpr uint32_t kBoxBytes = kFwdKeys * kBoxCols * 2;   // 16 KB, 128 rows
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of the forward, 1024-aligned: tiles of 128 rows x 64
+// How the forward tiles the head dim D into TMA boxes of 128 rows.  Boxes
+// of 64 columns (one 128-byte row, the 128-byte swizzle; d 32 and 80 run
+// padded to 64 and 128), except at d 160: 64-column boxes would pad it to
+// 192, whose Q tile and 2-stage K/V ring take 240 KB, over a block's 227
+// KB, beside a 96-register O accumulator.  There boxes of 32 columns
+// (64-byte rows, the 64-byte swizzle) hold 160 exactly: 40 KB of Q and
+// 80 KB of K and of V a stage, 200 KB; P V is one m64n160k16 a step and
+// Q K^T ten k16 steps, two in each box.
+template <int D>
+struct FwdTile {
+  static constexpr int kCols = D % 64 == 0 || D < 128 ? 64 : 32;
+  static constexpr int DP = (D + kCols - 1) / kCols * kCols;   // padded
+  static constexpr int NB = DP / kCols;          // boxes across the head dim
+  static constexpr int kSteps = kCols / 16;      // k16 steps in a box
+  static constexpr uint32_t kBoxBytes = kFwdKeys * kCols * 2;
+  static constexpr uint32_t kAtom = 8 * kCols * 2;   // 8 rows of a box
+  // a shared-memory descriptor of this tiling's swizzle
+  __device__ static uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
+    return kCols == 64 ? hopper::desc_sw128(p, lbo, sbo)
+                       : hopper::desc_sw64(p, lbo, sbo);
+  }
+};
+
+// Shared memory of the forward, 1024-aligned: tiles of 128 rows x COLS
 // columns (one TMA box each), NB of them across the padded head dim.
-template <int NB>
+template <int NB, int COLS>
 struct FwdSmem {
-  bf16 q[NB][kFwdRows * kBoxCols];
-  bf16 k[kFwdStages][NB][kFwdKeys * kBoxCols];
-  bf16 v[kFwdStages][NB][kFwdKeys * kBoxCols];
+  bf16 q[NB][kFwdRows * COLS];
+  bf16 k[kFwdStages][NB][kFwdKeys * COLS];
+  bf16 v[kFwdStages][NB][kFwdKeys * COLS];
   uint64_t q_full, k_full[kFwdStages], v_full[kFwdStages], empty[kFwdStages];
 };
 
@@ -584,6 +607,11 @@ template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t* a,
                                              uint64_t db) {
   hopper::wgmma_m64n64k16_rs(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<160>(float (&o)[80], const uint32_t* a,
+                                              uint64_t db) {
+  hopper::wgmma_m64n160k16_rs(o, a, db);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -605,11 +633,13 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tv,
                  bf16* __restrict__ out, float* __restrict__ lse, int S,
                  int Sk, int H, int Hkv, int causal, float scale) {
-  constexpr int DP = (D + kBoxCols - 1) / kBoxCols * kBoxCols;
-  constexpr int NB = DP / kBoxCols;
+  using T = FwdTile<D>;
+  constexpr int DP = T::DP;
+  constexpr int NB = T::NB;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t pad = (1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023;
-  FwdSmem<NB>& sm = *reinterpret_cast<FwdSmem<NB>*>(smem_raw + pad);
+  FwdSmem<NB, T::kCols>& sm =
+      *reinterpret_cast<FwdSmem<NB, T::kCols>*>(smem_raw + pad);
 
   const int h = blockIdx.x;   // heads vary fastest: heavy tiles first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdRows;
@@ -633,20 +663,20 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid >= kFwdConsumers) {   // the producer warpgroup; one thread issues
     hopper::setmaxnreg_dec<kProducerRegs>();
     if (tid == kFwdConsumers) {
-      hopper::mbar_expect_tx(&sm.q_full, NB * kBoxBytes);
+      hopper::mbar_expect_tx(&sm.q_full, NB * T::kBoxBytes);
       for (int c = 0; c < NB; ++c)
-        hopper::tma_load_4d(sm.q[c], &tq, &sm.q_full, c * kBoxCols, h, q0, b);
+        hopper::tma_load_4d(sm.q[c], &tq, &sm.q_full, c * T::kCols, h, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % kFwdStages;
         const uint32_t ph = (it / kFwdStages) & 1;
         hopper::mbar_wait(&sm.empty[st], ph ^ 1);
-        hopper::mbar_expect_tx(&sm.k_full[st], NB * kBoxBytes);
+        hopper::mbar_expect_tx(&sm.k_full[st], NB * T::kBoxBytes);
         for (int c = 0; c < NB; ++c)
-          hopper::tma_load_4d(sm.k[st][c], &tk, &sm.k_full[st], c * kBoxCols,
+          hopper::tma_load_4d(sm.k[st][c], &tk, &sm.k_full[st], c * T::kCols,
                               kvh, it * kFwdKeys, b);
-        hopper::mbar_expect_tx(&sm.v_full[st], NB * kBoxBytes);
+        hopper::mbar_expect_tx(&sm.v_full[st], NB * T::kBoxBytes);
         for (int c = 0; c < NB; ++c)
-          hopper::tma_load_4d(sm.v[st][c], &tv, &sm.v_full[st], c * kBoxCols,
+          hopper::tma_load_4d(sm.v[st][c], &tv, &sm.v_full[st], c * T::kCols,
                               kvh, it * kFwdKeys, b);
       }
     }
@@ -677,10 +707,11 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      const bf16* qa = sm.q[kk / 4] + wg * 64 * kBoxCols + (kk % 4) * 16;
-      const bf16* kb = sm.k[st][kk / 4] + (kk % 4) * 16;
-      hopper::wgmma_m64n128k16_ss(s, hopper::desc_sw128(qa, 16, 1024),
-                                  hopper::desc_sw128(kb, 16, 1024), kk > 0);
+      const int c = kk / T::kSteps, k16 = (kk % T::kSteps) * 16;
+      const bf16* qa = sm.q[c] + wg * 64 * T::kCols + k16;
+      const bf16* kb = sm.k[st][c] + k16;
+      hopper::wgmma_m64n128k16_ss(s, T::desc(qa, 16, T::kAtom),
+                                  T::desc(kb, 16, T::kAtom), kk > 0);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -723,15 +754,15 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     // O += P V = P_hi V + P_lo V: 8 steps of 16 keys; V MN-major (d
-    // contiguous), 64-column blocks 16 KB apart, groups of 8 keys 1024
-    // bytes apart
+    // contiguous), column blocks a box apart, groups of 8 keys an atom
+    // apart (16 KB and 1024 bytes in the 128-byte swizzle)
     hopper::mbar_wait(&sm.v_full[st], ph);
     hopper::fence_regs(o);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
-      const uint64_t dv = hopper::desc_sw128(
-          sm.v[st][0] + kk * 16 * kBoxCols, kBoxBytes, 1024);
+      const uint64_t dv = T::desc(sm.v[st][0] + kk * 16 * T::kCols,
+                                  T::kBoxBytes, T::kAtom);
       wgmma_pv<DP>(o, p_hi + 4 * kk, dv);
       wgmma_pv<DP>(o, p_lo + 4 * kk, dv);
     }
@@ -1123,10 +1154,11 @@ EncodeTiled encode_tiled() {
 }
 
 // The forward's 4-D map over a contiguous (B, rows, heads, D) bf16 tensor,
-// innermost dimension first: boxes of 64 columns x 1 head x 128 rows x 1
-// batch, in the 128-byte swizzle, zeros outside the tensor.
+// innermost dimension first: boxes of ``cols`` columns x 1 head x 128 rows
+// x 1 batch, in the swizzle of ``cols`` * 2-byte rows (64: 128 bytes, 32:
+// 64 bytes), zeros outside the tensor.
 cudaError_t make_map(CUtensorMap* map, const void* base, int B, int rows,
-                     int heads, int D) {
+                     int heads, int D, int cols) {
   static_assert(kFwdRows == kFwdKeys, "Q and K/V maps share one box");
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
@@ -1137,12 +1169,13 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int B, int rows,
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {dims[0] * e, dims[1] * dims[0] * e,
                                  dims[2] * dims[1] * dims[0] * e};
-  const cuuint32_t box[4] = {kBoxCols, 1, kFwdRows, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, kFwdRows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -1151,13 +1184,15 @@ template <int D>
 cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* out,
                      float* lse, int B, int S, int Sk, int H, int Hkv,
                      int causal, float scale, cudaStream_t stream) {
+  using T = FwdTile<D>;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map(&tq, q, B, S, H, D);
-  if (err == cudaSuccess) err = make_map(&tk, k, B, Sk, Hkv, D);
-  if (err == cudaSuccess) err = make_map(&tv, v, B, Sk, Hkv, D);
+  cudaError_t err = make_map(&tq, q, B, S, H, D, T::kCols);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, Sk, Hkv, D, T::kCols);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, Sk, Hkv, D, T::kCols);
   if (err != cudaSuccess) return err;
   constexpr size_t smem =
-      sizeof(FwdSmem<(D + kBoxCols - 1) / kBoxCols>) + 1024;   // + alignment
+      sizeof(FwdSmem<T::NB, T::kCols>) + 1024;   // + alignment
+  static_assert(smem <= 232448, "the forward's tiles fit a block");
   err = allow_smem(fwd_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, (S + kFwdRows - 1) / kFwdRows, B);
@@ -1199,13 +1234,23 @@ cudaError_t bwd_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// CALL(d) for the head dim D at run time.
-#define FLASH_BY_DIM(CALL)        \
+// CALL(d) for the head dim D at run time: the backward's widths, and the
+// forward's, which add d 160 (the backward at d 160 is not written yet).
+#define FLASH_BWD_BY_DIM(CALL)    \
   switch (D) {                    \
     case 32: return CALL(32);     \
     case 64: return CALL(64);     \
     case 80: return CALL(80);     \
     case 128: return CALL(128);   \
+    default: return cudaErrorInvalidValue; \
+  }
+#define FLASH_FWD_BY_DIM(CALL)    \
+  switch (D) {                    \
+    case 32: return CALL(32);     \
+    case 64: return CALL(64);     \
+    case 80: return CALL(80);     \
+    case 128: return CALL(128);   \
+    case 160: return CALL(160);   \
     default: return cudaErrorInvalidValue; \
   }
 
@@ -1224,8 +1269,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
 #define FWD_ARGS q, k, v, out, lse, B, S, Sk, H, Hkv, causal, scale, s
 #define FWD_F32(d) fwd_f32<d>(FWD_ARGS)
 #define FWD_BF16(d) fwd_bf16<d>(FWD_ARGS)
-  if (dtype == 0) FLASH_BY_DIM(FWD_F32)
-  if (dtype == 1) FLASH_BY_DIM(FWD_BF16)
+  if (dtype == 0) FLASH_FWD_BY_DIM(FWD_F32)
+  if (dtype == 1) FLASH_FWD_BY_DIM(FWD_BF16)
   return cudaErrorInvalidValue;
 }
 
@@ -1242,7 +1287,7 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, Sk, H, Hkv, causal, scale, s
 #define BWD_F32(d) bwd_f32<d>(BWD_ARGS)
 #define BWD_BF16(d) bwd_bf16<d>(BWD_ARGS)
-  if (dtype == 0) FLASH_BY_DIM(BWD_F32)
-  if (dtype == 1) FLASH_BY_DIM(BWD_BF16)
+  if (dtype == 0) FLASH_BWD_BY_DIM(BWD_F32)
+  if (dtype == 1) FLASH_BWD_BY_DIM(BWD_BF16)
   return cudaErrorInvalidValue;
 }

@@ -34,7 +34,7 @@ from repro_torch.kernels import _build, ref
 SPLIT = 256          # keys per CTA of the f32 kernel
 MAX_CLUSTER = 8      # CTAs per (kv head, slot) of the bf16 kernel, at most
 LONG_SHARE = 2048    # keys a bf16 CTA may stream before more CTAs pay off
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 160)
 MAX_GROUP = 8        # query heads per kv head (the rows of an mma tile)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -113,9 +113,10 @@ def _launch_paged(q, k_pages, v_pages, page_table, lengths, scale):
     B, H, dk = q.shape
     _, page, hkv, dv = v_pages.shape
     npp = page_table.shape[1]
-    if dk not in HEAD_DIMS or dv not in HEAD_DIMS:
+    if dk not in HEAD_DIMS or dv not in HEAD_DIMS or (dk == 160) != (
+            dv == 160):
         raise ValueError(f"head dims {dk}/{dv}: the kernel takes q/k and v "
-                         f"widths in {HEAD_DIMS}")
+                         f"widths in {HEAD_DIMS} (160 only with 160)")
     if tuple(k_pages.shape) != (v_pages.shape[0], page, hkv, dk) \
             or tuple(page_table.shape) != (B, npp):
         raise ValueError(f"shapes q {tuple(q.shape)} k "

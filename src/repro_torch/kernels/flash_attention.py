@@ -14,9 +14,12 @@ bounds the kernels and what the design does about it.
 ``flash_fwd`` and ``flash_bwd`` launch the kernels on CUDA tensors (or
 raise) and run the plain versions of ``kernels/ref.py`` on CPU tensors.
 ``FlashAttention`` joins them as a ``torch.autograd.Function``;
-``flash_attention`` is its entry point.  Masking follows the Pallas
-kernel: a causal query attends keys at or before its own position
-(``qpos >= kpos``), and any S works.
+``flash_attention`` is its entry point.  The forward takes head dims
+``FWD_HEAD_DIMS`` on the card, the backward ``BWD_HEAD_DIMS``: d 160
+(pixtral-12b) has a forward only, so on CUDA ``flash_attention``
+refuses it before any work where a gradient will be asked for (ROADMAP
+Queue 2 A1).  Masking follows the Pallas kernel: a causal query attends
+keys at or before its own position (``qpos >= kpos``), and any S works.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (32, 64, 80, 128)
+FWD_HEAD_DIMS = (32, 64, 80, 128, 160)
+BWD_HEAD_DIMS = (32, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -37,7 +41,7 @@ def flash_fwd(q, k, v, *, causal: bool = True,
     the CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
     if not q.is_cuda:
         return ref.flash_fwd(q, k, v, causal=causal, scale=scale)
-    _check(q, k, v)
+    _check(q, k, v, FWD_HEAD_DIMS)
     B, S, H, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
@@ -63,7 +67,7 @@ def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     if not q.is_cuda:
         return ref.flash_bwd(q, k, v, out, lse, dout, causal=causal,
                              scale=scale)
-    _check(q, k, v)
+    _check(q, k, v, BWD_HEAD_DIMS)
     B, S, H, d = q.shape
     for name, t, dtype in (("out", out, q.dtype), ("dout", dout, q.dtype),
                            ("lse", lse, torch.float32)):
@@ -114,11 +118,23 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None):
-    """q (B,S,H,d), k/v (B,Sk,Hkv,d) -> (B,S,H,d), differentiable."""
+    """q (B,S,H,d), k/v (B,Sk,Hkv,d) -> (B,S,H,d), differentiable.  On
+    CUDA tensors a head dim with no backward kernel is refused here,
+    before any launch, when a gradient will be asked for (grad mode on
+    and an input that requires it; inside the Function's forward grad
+    mode is always off)."""
+    if q.is_cuda and q.dim() == 4 and q.shape[-1] not in BWD_HEAD_DIMS \
+            and torch.is_grad_enabled() \
+            and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            f"head dim {q.shape[-1]}: the flash backward takes "
+            f"{BWD_HEAD_DIMS} on the card, and a gradient will be asked for "
+            "(the forward alone runs under torch.no_grad or inference_mode; "
+            "ROADMAP Queue 2 A1)")
     return FlashAttention.apply(q, k, v, causal, scale)
 
 
-def _check(q, k, v):
+def _check(q, k, v, head_dims):
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}: want (B,S,H,d) and "
@@ -127,8 +143,8 @@ def _check(q, k, v):
     if k.shape[0] != B or k.shape[3] != d or H % k.shape[2] or S == 0 \
             or k.shape[1] == 0:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the kernel takes {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"head dim {d}: the kernel takes {head_dims}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash attention takes f32 or bf16 q/k/v of one "
                          f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")

@@ -11,7 +11,11 @@
 
 It runs on the card unless ``--device cpu`` is given.  ``--reduced``
 trains the same-family miniature in f32 with no remat; otherwise the
-full-width model trains in its dtype with ``remat="dots"``.
+full-width model trains in its dtype with ``remat="dots"``.  The audio
+encoder ``hubert-xlarge`` trains through the masked-frame loss (its
+batches carry frames and a mask; the loss weights are the mask);
+``pixtral-12b`` trains on the CPU, and on the card only reduced: its
+full-width head dim 160 has no flash backward yet.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
@@ -65,15 +69,11 @@ class StragglerWatchdog:
 
 def run(args) -> dict:
     cfg = get_config(args.arch)
-    if "mamba" in cfg.layer_kinds() and torch.device(args.device).type \
-            == "cuda":
-        raise NotImplementedError(
-            f"{cfg.name}: training on the card needs a gradient of the SSD "
-            "scan, which the reference's kernel lacks too (ssd_pallas is "
-            "forward-only); ROADMAP Queue 1 item 7")
-    dev = resolve_device(args.device)
     if args.reduced:
         cfg = dataclasses.replace(reduced(cfg), dtype="float32")
+    if torch.device(args.device).type == "cuda":
+        M.check_card_training(cfg)
+    dev = resolve_device(args.device)
     shape = SHAPES[args.shape]
     perf = perf_replace(DEFAULT_PERF, microbatches=args.microbatches,
                         grad_compress=args.grad_compress,

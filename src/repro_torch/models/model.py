@@ -13,8 +13,14 @@ whose leaves are stacked on a leading ``n_groups`` axis, and
 ``{k, v}: (n_groups, B, S_max, Hkv, hd)`` caches (attention), or
 recurrent states whose every leaf is ``(n_groups, B, ...)``:
 ``{conv, h f32}`` (Mamba), ``{C, n, m f32, conv}`` (mLSTM) and
-``{c, n, m, h}`` f32 (sLSTM).  MLA and the vision/audio frontends are
-not ported (ROADMAP Queue 1 item 7c).
+``{c, n, m, h}`` f32 (sLSTM).  The embedding fuses the reference's
+frontend stubs: an audio model (``hubert-xlarge``, encoder-only and
+bidirectional) embeds precomputed frames through ``embed.frame_proj``
+and puts ``embed.mask_emb`` where the batch's mask holds; a vision model
+(``pixtral-12b``) replaces its first token positions by patch embeddings
+through ``embed.patch_proj`` (early fusion).  An encoder-only model has
+no decode step, as in the reference.  MLA is not ported (ROADMAP Queue 1
+item 7c.3).
 
 The reference scans the layer groups under ``jax.checkpoint``; here the
 groups are a plain loop, each under ``torch.utils.checkpoint`` as
@@ -35,6 +41,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.controller import resolve_device
+from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm, xlstm
 from repro_torch.models.attention import gqa_decode, gqa_forward
@@ -46,12 +53,31 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA is not ported (ROADMAP Queue 1 item 7c.3)")
+
+
+def _check_decodes(cfg: ModelConfig) -> None:
+    """The reference's refusal of ``decode_step`` (``model.py:208-209``)."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only; no decode step")
-    if cfg.mla is not None or cfg.frontend is not None:
+    _check_ported(cfg)
+
+
+def check_card_training(cfg: ModelConfig) -> None:
+    """Raise where a backward of ``cfg`` on the card would need a gradient
+    that no kernel of the port computes yet, before any weight is built."""
+    if "mamba" in cfg.layer_kinds():
         raise NotImplementedError(
-            f"{cfg.name}: MLA and the vision/audio frontends are not "
-            "ported (ROADMAP Queue 1 item 7c)")
+            f"{cfg.name}: training on the card needs a gradient of the SSD "
+            "scan, which the reference's kernel lacks too (ssd_pallas is "
+            "forward-only); ROADMAP Queue 1 item 7")
+    if "attn" in cfg.layer_kinds() and cfg.head_dim_ not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{cfg.name}: training on the card needs the flash backward at "
+            f"head dim {cfg.head_dim_}, which the port's kernel does not "
+            f"take yet (it takes {BWD_HEAD_DIMS}); ROADMAP Queue 2 A1")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -119,6 +145,11 @@ def param_leaves(cfg: ModelConfig) -> dict:
             ent["ffn"] = _ffn_leaves(cfg, ffn)
         groups.append(stacked(ent))
     embed = {"tok": Leaf((cfg.padded_vocab, d))}
+    if cfg.frontend == "vision":
+        embed["patch_proj"] = Leaf((d, d))
+    if cfg.frontend == "audio":
+        embed["frame_proj"] = Leaf((d, d))
+        embed["mask_emb"] = Leaf((d,))
     if not cfg.tie_embeddings:
         embed["head"] = Leaf((d, cfg.padded_vocab))
     return {"embed": embed, "groups": groups,
@@ -198,7 +229,7 @@ def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cuda",
     ``device``: ``{k, v}`` caches for attention, ``{conv, h}`` (h f32)
     for Mamba, ``{C, n, m, conv}`` (all but conv f32) for mLSTM and
     ``{c, n, m, h}`` (f32) for sLSTM."""
-    _check_ported(cfg)
+    _check_decodes(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
     n = cfg.n_groups
@@ -259,7 +290,7 @@ def decode_step(cfg: ModelConfig, params, state, tokens, lengths, *,
     state bit for bit (the reference's gated ``where``, written without
     a copy of the whole state).
     """
-    _check_ported(cfg)
+    _check_decodes(cfg)
     x = embed_tokens(cfg, params["embed"], tokens)[:, None]
     kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
     for layer in range(cfg.n_groups):
@@ -329,6 +360,34 @@ def _unstack(tree, n: int) -> list:
     return out
 
 
+def _project(x, w):
+    """``x @ w`` in the promoted dtype of the two, as the reference's
+    einsum of f32 frames or patches with a bf16 weight (f32 out)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def _embed(cfg: ModelConfig, params, batch):
+    """Token / frontend embedding fusion -> (B, S, d) activations (port of
+    ``repro/models/model.py::_embed``).  Audio: ``frames @ frame_proj``,
+    ``mask_emb`` where ``mask`` holds, then the model dtype (the select
+    in the promoted dtype, the cast last).  Vision: the first ``n``
+    positions of the token embedding replaced by ``patches @
+    patch_proj`` in the model dtype."""
+    p = params["embed"]
+    if cfg.frontend == "audio":
+        x = _project(batch["frames"], p["frame_proj"])
+        if "mask" in batch:
+            x = torch.where(batch["mask"][..., None],
+                            p["mask_emb"].to(x.dtype)[None, None], x)
+        return x.to(torch_dtype(cfg))
+    x = embed_tokens(cfg, p, batch["tokens"])
+    if cfg.frontend == "vision" and "patches" in batch:
+        pe = _project(batch["patches"], p["patch_proj"])
+        x = torch.cat([pe.to(x.dtype), x[:, pe.shape[1]:]], dim=1)
+    return x
+
+
 _MIXER_FORWARD = {"mamba": ssm.mamba_forward, "mlstm": xlstm.mlstm_forward,
                   "slstm": xlstm.slstm_forward}
 
@@ -339,7 +398,7 @@ def forward(cfg: ModelConfig, params, batch, *,
     the MoE load-balance losses summed over layers)."""
     _check_ported(cfg)
     causal = (not cfg.encoder_only) if causal is None else causal
-    x = embed_tokens(cfg, params["embed"], batch["tokens"])
+    x = _embed(cfg, params, batch)
     S = x.shape[1]
     cos, sin = (rope_table(S, cfg.head_dim_, cfg.rope_theta, device=x.device)
                 if cfg.rope_theta else (None, None))
@@ -377,7 +436,9 @@ def forward(cfg: ModelConfig, params, batch, *,
 
 def loss_fn(cfg: ModelConfig, params, batch, *,
             perf: PerfConfig = DEFAULT_PERF):
-    """Scalar loss + metrics.  batch: tokens, labels, weights."""
+    """Scalar loss + metrics.  batch: tokens (or an audio model's frames
+    and mask; a vision model's patches too), labels, weights (an audio
+    model's mask: the masked-frame loss)."""
     logits, aux = forward(cfg, params, batch, perf=perf)
     ce = cross_entropy(logits, batch["labels"], batch["weights"].float())
     loss = ce + aux

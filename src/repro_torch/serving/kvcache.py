@@ -39,13 +39,16 @@ def check_servable(cfg: ModelConfig) -> None:
     """The engine serves decoders of attention, Mamba, mLSTM and sLSTM
     layers: each state leaf is ``[group, slot, ...]``, so the gated merge
     (``serving/engine.py``), ``free_slot`` and freeze/thaw carry every
-    layout by its slot axis.  MLA, the vision/audio frontends and
-    encoder-only models are not ported."""
-    if cfg.mla is not None or cfg.frontend is not None or cfg.encoder_only:
+    layout by its slot axis.  A vision model is served as the reference's
+    engine serves it: it decodes text tokens (the patches enter a
+    forward, not a decode step).  An encoder-only model has no decode
+    step (the reference's reason); MLA is not ported."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only; no decode step")
+    if cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name}: the engine serves attention, Mamba, mLSTM and "
-            "sLSTM decoders; MLA, the vision/audio frontends and "
-            "encoder-only models are not ported (ROADMAP Queue 1 item 7c)")
+            "sLSTM decoders; MLA is not ported (ROADMAP Queue 1 item 7c.3)")
 
 
 class SlotCaches:

@@ -52,7 +52,10 @@ def make_train_step(cfg: ModelConfig, perf: PerfConfig = DEFAULT_PERF,
 
         def value_and_grad(b):
             loss, metrics = M.loss_fn(cfg, params, b, perf=perf)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the loss does not read (an audio encoder's token
+            # table) gets zeros, as jax.grad gives it
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
             return loss.detach(), metrics, grads
 
         if perf.microbatches <= 1:

@@ -6,6 +6,7 @@ compiled."""
 import shutil
 
 import pytest
+torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build
 

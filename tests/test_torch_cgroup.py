@@ -9,6 +9,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+torch = pytest.importorskip("torch")
 
 from repro.core import cgroup as JCG
 from repro.core import domains as JD

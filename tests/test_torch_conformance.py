@@ -16,6 +16,7 @@ package's.
 """
 import numpy as np
 import pytest
+torch = pytest.importorskip("torch")
 
 from repro.core import cgroup as JC
 from repro.core import progs as JP

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, over every head width and query-group size the decode and flash
-kernels take, the decode kernel's edge lengths and its one launch a
+kernels take (d 160: the decode kernel at every cluster size and the
+flash forward alone, whose gradient is refused before any launch), the
+decode kernel's edge lengths and its one launch a
 call, the paged decode's page sizes and unequal k/v widths, the
 SSD scan's chunk, state and head widths, and every stock enforcement
 program over random tables and the engine-shaped ones of
@@ -14,7 +16,7 @@ conftest):
 """
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.core import controller as C
 from repro_torch.core import progs as P
@@ -61,6 +63,9 @@ def dev():
     # internlm2 (G 6)
     (8, 36, 36, 64, 2048), (8, 40, 10, 128, 2048), (8, 40, 8, 128, 2048),
     (8, 48, 8, 128, 2048),
+    # pixtral-12b's heads (G 4 at d 160) at the engine's slots, a ragged
+    # S_max, and S_max 32768
+    (8, 32, 8, 160, 2048), (3, 12, 3, 160, 1001), (1, 32, 8, 160, 32768),
 ])
 def test_decode_attention_kernel(dev, B, H, hkv, d, s_max, dtype):
     g = torch.Generator(device=dev).manual_seed(B * 1000 + s_max)
@@ -145,6 +150,27 @@ def test_decode_attention_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="head dims"):
         A.decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32,
                                                  device=dev))
+
+
+def test_decode_d160_edge_lengths(dev):
+    """bf16 at d 160 (pixtral's heads) holds the bars at every cluster
+    size, on and beside the CTA shares' boundaries."""
+    g = torch.Generator(device=dev).manual_seed(163)
+    B, H, hkv, d, s_max = 8, 32, 8, 160, 2055
+    q = torch.randn(B, H, d, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, s_max, hkv, d, generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    lengths = torch.tensor([0, 1, 63, 64, 65, 1024, 2049, 2055],
+                           dtype=torch.int32, device=dev)
+    want = A.decode_attention_plain(q, k, v, lengths)
+    for n in (1, 2, 4, 8):
+        got = A._run(q, k, v, None, lengths, s_max, 0, d, None,
+                     "decode_attention", splits=n)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= TOL[
+            torch.bfloat16]
+        assert slot_norm_rel(got, want, lengths) <= SLOT_NORM_REL
+        assert not got[0].float().any()
 
 
 def _table(rng, n, progs, dev):
@@ -380,6 +406,15 @@ FLASH_SHAPES = [  # B, S, Sk, H, Hkv, d, causal
     # the decoder families' heads: minicpm, phi3, maverick, internlm2
     (1, 512, 512, 36, 36, 64, True), (1, 512, 512, 40, 10, 128, True),
     (1, 512, 512, 40, 8, 128, True), (1, 512, 512, 48, 8, 128, True),
+    # hubert-xlarge's: MHA at d 80, bidirectional
+    (1, 512, 512, 16, 16, 80, False),
+]
+# the forward alone at d 160 (pixtral-12b; no backward there yet): G 4,
+# causal and full, tails in both, S != Sk, one tile
+FLASH_FWD_SHAPES = [  # B, S, Sk, H, Hkv, d, causal
+    (1, 512, 512, 32, 8, 160, True), (2, 333, 333, 8, 2, 160, False),
+    (1, 1000, 1000, 8, 2, 160, True), (1, 200, 333, 4, 1, 160, True),
+    (1, 128, 128, 1, 1, 160, False),
 ]
 
 
@@ -435,6 +470,51 @@ def test_flash_kernels(dev, B, S, Sk, H, hkv, d, causal, dtype):
             assert diff.norm() <= 1e-2 * b.norm(), name
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Sk,H,hkv,d,causal", FLASH_FWD_SHAPES)
+def test_flash_forward_kernel(dev, B, S, Sk, H, hkv, d, causal, dtype):
+    """The forward (out, lse) against the plain version b under
+    ``test_flash_kernels``' bars."""
+    g = torch.Generator(device=dev).manual_seed(S * 7 + Sk + d)
+    q = torch.randn(B, S, H, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Sk, hkv, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Sk, hkv, d, generator=g, device=dev).to(dtype)
+    before = FA.flash_fwd.launches
+    out, lse = FA.flash_fwd(q, k, v, causal=causal)
+    assert FA.flash_fwd.launches == before + 1
+    want_out, want_lse = R.flash_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    for name, a, b in (("out", out, want_out), ("lse", lse, want_lse)):
+        a, b = a.double(), b.double()
+        diff = (a - b).abs()
+        if dtype == torch.float32:
+            assert (diff <= tol * (1 + b.abs())).all(), name
+        else:
+            rms = b.square().mean().sqrt()
+            assert (diff <= tol * (rms + b.abs())).all(), name
+            assert diff.norm() <= 1e-2 * b.norm(), name
+
+
+def test_flash_d160_backward_refused_before_any_launch(dev):
+    """d 160 has a forward only on the card: ``flash_attention`` refuses it
+    before any launch when a gradient will be asked for, ``flash_bwd``
+    refuses the width, and the forward alone runs under no_grad."""
+    q = torch.randn(1, 64, 4, 160, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    before = (FA.flash_fwd.launches, FA.flash_bwd.launches)
+    with pytest.raises(ValueError, match="flash backward takes"):
+        FA.flash_attention(q, q, q)
+    assert (FA.flash_fwd.launches, FA.flash_bwd.launches) == before
+    x = q.detach()
+    lse = torch.zeros(1, 4, 64, device=dev)
+    with pytest.raises(ValueError, match="head dim 160"):
+        FA.flash_bwd(x, x, x, x, lse, x)
+    with torch.no_grad():
+        out = FA.flash_attention(q, q, q)
+    assert out.shape == q.shape and FA.flash_fwd.launches == before[0] + 1
+
+
 def test_flash_function_matches_plain_autograd(dev):
     """The autograd Function on the card against the same Function on the
     CPU (plain versions) through a loss, f32."""
@@ -467,6 +547,7 @@ def test_flash_refuses_what_it_cannot_take(dev):
     (8, 24, 8, 128, 128, 16, 128), (3, 6, 2, 32, 32, 16, 5),
     (2, 8, 1, 128, 64, 32, 6), (4, 16, 2, 64, 128, 16, 40),
     (2, 7, 1, 32, 128, 32, 9), (2, 10, 2, 128, 32, 16, 33),
+    (8, 32, 8, 160, 160, 16, 128), (3, 12, 3, 160, 160, 32, 9),
 ])
 def test_paged_decode_kernel(dev, B, H, hkv, dk, dv, page, npp, dtype):
     """A permuted pool, -1 past each length (never read), one empty slot

@@ -14,6 +14,7 @@ import threading
 import time
 
 import pytest
+torch = pytest.importorskip("torch")
 
 from repro.core import cgroup as JC
 from repro.core import daemon as JDm

@@ -15,7 +15,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as JR
 from repro.kernels.decode_attention import (decode_attention_pallas,

@@ -17,7 +17,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from torch.utils._pytree import tree_leaves
 
 from repro.core import domains as JD

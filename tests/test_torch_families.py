@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from torch.utils._pytree import tree_flatten, tree_map
 
 from repro.configs import get_config, reduced
@@ -265,10 +265,11 @@ def test_mlstm_chunked_matches_sequential():
 
 def test_registry_order_and_refusals():
     """The port registers the reference's runnable architectures in its
-    order; the MLA and frontend ones name what they wait for."""
+    order; the MLA one names what it waits for."""
     assert TC.ARCH_IDS == [a for a in JR.ARCH_IDS
                            if a in TC.ARCH_IDS]
-    assert set(TC.ARCH_IDS) == {"jamba-v0.1-52b", "llama3.2-3b", *ARCHS}
+    assert set(TC.ARCH_IDS) == {"jamba-v0.1-52b", "llama3.2-3b", *ARCHS,
+                                "pixtral-12b", "hubert-xlarge"}
     for arch in set(JR.ARCH_IDS) - set(TC.ARCH_IDS):
         with pytest.raises(NotImplementedError, match="item 7c"):
             TC.get_config(arch)

@@ -15,7 +15,7 @@ import json
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import cgroup as JC
 from repro.core import domains as JD

@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.configs import get_config, reduced
 from repro.models import model as JM
@@ -187,7 +187,9 @@ def test_engine_serves_reduced_jamba():
 
 @pytest.mark.parametrize("change", ["mla", "vision", "audio_encoder"])
 def test_engine_refuses_mla_and_frontends(change):
-    """MLA, the frontends and encoder-only models wait for ROADMAP item 7c."""
+    """MLA waits for ROADMAP item 7c.3; an encoder-only model has no
+    decode step (the reference's reason); a vision model is served, as
+    the reference's engine serves it (it decodes text tokens)."""
     from repro_torch.configs.base import MLAConfig
     from repro_torch.serving.kvcache import SlotCaches, check_servable
 
@@ -197,9 +199,15 @@ def test_engine_refuses_mla_and_frontends(change):
         "vision": dict(frontend="vision", n_frontend_tokens=16),
         "audio_encoder": dict(frontend="audio", encoder_only=True),
     }[change])
-    with pytest.raises(NotImplementedError, match="item 7c"):
+    if change == "vision":
         check_servable(cfg)
-    with pytest.raises(NotImplementedError, match="item 7c"):
+        assert SlotCaches(cfg, 2, 32, "cpu").n_free == 2
+        return
+    err, match = {"mla": (NotImplementedError, "item 7c.3"),
+                  "audio_encoder": (ValueError, "encoder-only")}[change]
+    with pytest.raises(err, match=match):
+        check_servable(cfg)
+    with pytest.raises(err, match=match):
         SlotCaches(cfg, 2, 32, "cpu")
 
 

@@ -8,6 +8,7 @@ import sys
 from pathlib import Path
 
 import pytest
+torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

@@ -13,7 +13,7 @@ import io
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import adaptive as JA
 from repro.core import domains as JD

@@ -16,7 +16,7 @@ for ``ssd_pallas``: atol 2e-3, rtol 1e-3."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as JR
 from repro.kernels.mamba_scan import ssd_pallas

@@ -7,6 +7,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+torch = pytest.importorskip("torch")
 
 from repro.traces import generator as JG
 from repro.traces import schema as JS

@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import SHAPES, get_config, reduced

@@ -8,6 +8,7 @@ Each case runs through both packages and must give the same values."""
 import dataclasses
 
 import pytest
+torch = pytest.importorskip("torch")
 
 from repro.core import adaptive as JA
 from repro.core import cgroup as JC
