@@ -13,6 +13,9 @@ Phases, one JSON line each on standard output:
                  of each bf16 flash backward kernel, of the bf16 SSD state
                  and chunk-scan kernels and of the bf16 decode kernel, from
                  ``cuobjdump -sass``; fails where one is missing.
+  ptxas          (with kernels) the registers and spill bytes of each flash
+                 backward kernel from the build's ``-Xptxas=-v`` log; fails
+                 where a bf16 one at (160, 160) or (192, 128) spills.
   kernels        each CUDA kernel against its plain PyTorch version on the
                  card, at the shapes its path gives it: the fused charge
                  and gate bit-exact over randomized tables and over
@@ -51,7 +54,12 @@ Phases, one JSON line each on standard output:
                  them; the flash forward at d 160 (pixtral: S 4096, H
                  32 / Hkv 8, causal, bf16, timed beside the library's
                  forward; a ragged S 1000 non-causal in f32 and bf16 and
-                 causal in bf16) and its refusal of a gradient there;
+                 causal in bf16) and its backward at pixtral's shape;
+                 both passes at MLA's dk 192 / dv 128 (deepseek-v2: B 1,
+                 S 4096, H 128 / 128, causal, bf16; a ragged S 1000 in f32
+                 and bf16, G 1 full and G 4 causal), the full shapes
+                 timed beside their bounds, plain versions and the
+                 library (its backend named, or "none");
                  hubert's heads (H 16 / 16, d 80, non-causal, S 4096),
                  forward and backward, timed beside the library's; the
                  paged decode at the
@@ -109,15 +117,18 @@ Phases, one JSON line each on standard output:
                  full width (bf16, seeded random weights): phi3-medium-
                  14b, minicpm-2b, internlm2-20b, xlstm-350m and
                  pixtral-12b (d 160) at full depth, llama4-maverick cut
-                 to 2 layers and Jamba to 8 (the cuts printed with their
-                 reason); each report equal
+                 to 2 layers, Jamba to 8 and deepseek-v2-236b to 4 (the
+                 cuts printed with their reason); each report equal
                  to the same config's reduced CPU run, the gate read on
                  the live table each step, one charge and one gate launch
-                 a step and a decode launch per attention layer a step;
-                 step p50/p95, tokens/s, peak memory; on Jamba and xLSTM,
-                 a slot the gate denies keeps its whole state bit for bit
-                 and a frozen-then-thawed slot's state comes back
-                 bit-identical on the card.
+                 a step and a decode launch per GQA attention layer a
+                 step (none for MLA, whose latent decode is torch);
+                 step p50/p95, tokens/s, peak memory; on Jamba, xLSTM
+                 and deepseek-v2, a slot the gate denies keeps its whole
+                 state (deepseek's latent ckv/krope rows too) bit for bit,
+                 the granted slot's attention leaves change in the
+                 written row only, and a frozen-then-thawed slot's state
+                 comes back bit-identical on the card.
   control_full   the full-width llama3.2-3b serving through the other
                  control planes, each against the same run at reduced
                  width on the CPU: ``backend="async"`` on serve_full's
@@ -166,7 +177,17 @@ Phases, one JSON line each on standard output:
                  over a 4096-token sequence whose first 1,024 positions
                  are patches: 40 d-160 flash launches a call, finite
                  logits, the text positions' cross-entropy where random
-                 weights put it; 1 untimed and 3 timed calls.
+                 weights put it; 1 untimed and 3 timed calls; and
+                 ``launch.train --arch pixtral-12b --layers 10`` at full
+                 width (d 160's flash backward), 8 steps, checked as
+                 hubert's.
+  mla_full       the MLA model (the reduced f32 deepseek with the real
+                 head dims, dk 192 / dv 128) forward on the card and on
+                 the CPU: logits within 1e-4, then three decode steps;
+                 and ``models/model.py::forward`` under inference mode on
+                 the full-width deepseek-v2-236b cut to 4 layers over one
+                 4096-token sequence: 4 flash launches a call, finite
+                 logits, the cross-entropy where random weights put it.
   profile        (only with ``--phases profile``) ``torch.profiler`` over
                  30 full-width engine steps: device busy and idle time, and
                  the kernels that take it.
@@ -715,11 +736,12 @@ def check_decode_d160(dev, seed: int) -> dict:
 FLASH_TRAIN = dict(B=1, S=4096, H=24, hkv=8, d=128)
 
 
-def _flash_inputs(g, dev, dtype, B, S, H, hkv, d, Sk=None):
-    Sk = Sk or S
+def _flash_inputs(g, dev, dtype, B, S, H, hkv, d, Sk=None, dv=None):
+    """q, k, v and dout: q and k ``d`` wide, v and dout ``dv`` (d)."""
+    Sk, dv = Sk or S, dv or d
     return [torch.randn(*shape, generator=g, device=dev).to(dtype)
-            for shape in ((B, S, H, d), (B, Sk, hkv, d), (B, Sk, hkv, d),
-                          (B, S, H, d))]
+            for shape in ((B, S, H, d), (B, Sk, hkv, d), (B, Sk, hkv, dv),
+                          (B, S, H, dv))]
 
 
 def flash_close(a, b, dtype) -> dict:
@@ -757,13 +779,14 @@ def _flash_errs(FA, R, q, k, v, do, causal) -> dict:
 
 
 # library -> kernel -> (its instantiations, the SASS instructions each
-# must hold): the flash forward's five head dims (d 160 too) and the
-# backward's four; the decode kernel's nine (dk, dv) pairs of 32, 64 and
-# 128, and d 160
+# must hold): the flash kernels' six (dk, dv) pairs (d 32, 64, 80, 128,
+# 160 and MLA's 192 / 128) in the forward and the dq pass, the 4-warp
+# dk/dv kernel's four up to d 128 and the paired one's two above it; the decode kernel's nine (dk, dv) pairs of 32, 64 and 128, and d 160
 KERNEL_SASS = {
-    "flash_attention": {"fwd_wgmma_kernel": (5, ("HGMMA", "UTMALDG")),
-                        "dq_mma_kernel": (4, ("HMMA", "LDGSTS")),
-                        "dkdv_mma_kernel": (4, ("HMMA", "LDGSTS"))},
+    "flash_attention": {"fwd_wgmma_kernel": (6, ("HGMMA", "UTMALDG")),
+                        "dq_mma_kernel": (6, ("HMMA", "LDGSTS")),
+                        "dkdv_mma_kernel": (4, ("HMMA", "LDGSTS")),
+                        "dkdv_pair_kernel": (2, ("HMMA", "LDGSTS"))},
     "mamba_scan": {"ssd_state_kernel": (1, ("HMMA", "LDGSTS")),
                    "ssd_chunk_scan_kernel": (1, ("HMMA", "LDGSTS"))},
     "decode_attention": {"decode_mma_kernel": (10, ("HMMA", "LDGSTS"))},
@@ -788,12 +811,9 @@ def kernel_sass(libs: dict) -> dict:
         for block in sass.split("Function : ")[1:]:
             name = block.split("\n", 1)[0]
             for kernel, (_, ops) in kernels.items():
-                if kernel in name:
-                    rest = name.split(kernel, 1)[1]
-                    dim = ",".join(rest.split("ILi", 1)[1].split("EE")[0]
-                                   .split("ELi")) if "ILi" in rest else ""
-                    counts[f"{kernel}<{dim}>" if dim else kernel] = {
-                        op: block.count(op) for op in ops}
+                key = kernel_key(name, kernel)
+                if key:
+                    counts[key] = {op: block.count(op) for op in ops}
         missing = [k for k, c in counts.items() if not all(c.values())]
         copies = {kernel: sum(1 for k in counts
                               if k.split("<")[0] == kernel)
@@ -906,23 +926,34 @@ FLASH_GROUPS = {
 }
 
 
-def _flash_times(FA, q, k, v, do, B, S, H, hkv, d, causal=True,
-                 backward=True) -> dict:
+def flash_cost(q, k, v, causal) -> dict:
+    """The bytes and operations of a flash call at these inputs' shapes
+    (bf16): causal, half the S x S pairs; the forward's products 2 (dk +
+    dv) flops a pair and head, the backward's necessary five (s, dp, dq,
+    dk, dv) 2 (3 dk + 2 dv); each input read and output written once."""
+    B, S, H, dk = q.shape
+    Sk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    pairs = B * H * S * Sk / (2 if causal else 1)
+    qkv = 2 * (B * S * H * dk + B * Sk * hkv * (dk + dv))
+    return {"fwd_bytes": qkv + 2 * B * S * H * dv + 4 * B * H * S,
+            "fwd_ops": 2 * pairs * (dk + dv),
+            "bwd_bytes": 2 * qkv + 2 * 2 * B * S * H * dv + 4 * B * H * S,
+            "bwd_ops": 2 * pairs * (3 * dk + 2 * dv)}
+
+
+def _flash_times(FA, q, k, v, do, causal=True, backward=True, **_) -> dict:
     """The bf16 flash forward's (and backward's) issue pace at one shape,
-    beside their bounds (``check_flash``'s counts: a causal call does
-    half the S x S work)."""
+    beside their bounds (``flash_cost``)."""
     o, lse = FA.flash_fwd(q, k, v, causal=causal)
-    fwd_ops = 4 * B * H * S * S * d / (2 if causal else 1)
-    qkv_bytes = 2 * (B * S * H * d + 2 * B * S * hkv * d)
-    fwd_bytes = qkv_bytes + 2 * B * S * H * d + 4 * B * H * S
-    bwd_bytes = qkv_bytes + 2 * 2 * B * S * H * d + 4 * B * H * S + qkv_bytes
+    c = flash_cost(q, k, v, causal)
     out = {"fwd_ms": cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=causal),
                              5, 1),
-           "fwd_bound_ms": bound_ms(fwd_bytes, fwd_ops, torch.bfloat16)[0]}
+           "fwd_bound_ms": bound_ms(c["fwd_bytes"], c["fwd_ops"],
+                                    torch.bfloat16)[0]}
     if backward:
         out.update(bwd_ms=cuda_ms(lambda: FA.flash_bwd(
             q, k, v, o, lse, do, causal=causal), 3, 1),
-            bwd_bound_ms=bound_ms(bwd_bytes, 2.5 * fwd_ops,
+            bwd_bound_ms=bound_ms(c["bwd_bytes"], c["bwd_ops"],
                                   torch.bfloat16)[0])
     return out
 
@@ -938,10 +969,10 @@ def check_flash_frontends(dev, seed: int) -> dict:
     ``flash_close``): pixtral's training shape (causal, bf16), timed
     beside its plain version, the library's forward and its operations
     bound; a ragged S of 1000, non-causal in f32 and bf16 and causal in
-    bf16; and, on CUDA inputs that require grad, ``flash_attention``
-    refusing d 160 before any launch.  Then hubert's heads (non-causal,
-    bf16): forward and backward against the plain versions, timed beside
-    their bounds and the library's forward and backward alone."""
+    bf16 (the backward at d 160 is ``check_flash_mla``'s).  Then hubert's
+    heads (non-causal, bf16): forward and backward against the plain
+    versions, timed beside their bounds and the library's forward and
+    backward alone."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
@@ -978,16 +1009,6 @@ def check_flash_frontends(dev, seed: int) -> dict:
                            / t["fwd_ms"] / 1e9)
             times["pixtral_d160"] = t
         del q, k, v, got, lse, want, want_lse
-    q = torch.zeros(1, 16, 4, 160, device=dev, dtype=torch.bfloat16,
-                    requires_grad=True)
-    before = FA.flash_fwd.launches
-    try:
-        FA.flash_attention(q, q, q)
-    except ValueError as e:
-        out["d160_grad_refused"] = str(e)
-    if "d160_grad_refused" not in out or FA.flash_fwd.launches != before:
-        raise AssertionError("flash_attention took d 160 with a gradient "
-                             "to come")
     # hubert: both passes, non-causal
     q, k, v, do = _flash_inputs(g, dev, torch.bfloat16, **FLASH_HUBERT)
     errs = _flash_errs(FA, R, q, k, v, do, False)
@@ -1011,6 +1032,166 @@ def check_flash_frontends(dev, seed: int) -> dict:
     times["hubert_d80_full"] = t
     out["times"] = times
     return out
+
+
+# deepseek-v2's MLA attention at full width: 128 heads of dk 192 (128 +
+# 64 rope) and dv 128, k/v expanded per head from the latent (G 1)
+FLASH_MLA = dict(B=1, S=4096, H=128, hkv=128, d=192, dv=128)
+
+
+def library_attention(q, k, v, do, causal: bool) -> dict:
+    """``scaled_dot_product_attention`` on the same inputs (heads second,
+    GQA): its forward and its backward alone over one retained forward,
+    timed by CUDA events, and the kernels the profiler saw a forward and
+    a backward launch (the backend PyTorch picked).  Where no backend
+    takes the shapes, the error instead of the times."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.timing import device_ms
+
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+
+    def fwd():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                              enable_gqa=gqa)
+
+    try:
+        fwd()
+    except RuntimeError as e:
+        return {"fwd_ms": None, "bwd_ms": None,
+                "backend": "none", "error": str(e).splitlines()[0][:300]}
+    lq, lk, lv = (x.detach().requires_grad_() for x in (qs, ks, vs))
+    y = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
+                                       enable_gqa=gqa)
+    dos = do.transpose(1, 2)
+
+    def bwd():
+        return torch.autograd.grad(y, (lq, lk, lv), dos, retain_graph=True)
+
+    out = {"fwd_ms": cuda_ms(fwd, 5, 2), "bwd_ms": cuda_ms(bwd, 3, 1),
+           "fwd_kernels": sorted(k[:80] for k in device_ms(fwd, 1)),
+           "bwd_kernels": sorted(k[:80] for k in device_ms(bwd, 1))}
+    names = " ".join(out["fwd_kernels"]).lower()
+    # cuDNN's kernel names say "flash" too, so it is asked first
+    out["backend"] = ("cudnn" if "cudnn" in names else
+                      "flash" if "flash" in names else
+                      "efficient" if "fmha" in names or "mem_eff" in names
+                      or "efficient" in names else "math")
+    return out
+
+
+def check_flash_mla(dev, seed: int) -> dict:
+    """The flash kernels at the (dk, dv) pairs this slice added: MLA's 192 /
+    128 at deepseek-v2's full attention shape (B 1, S 4096, H 128, causal,
+    bf16) and at a ragged S 1000 in f32 and bf16, G 1 and G 4, causal and
+    full; the backward at pixtral's d 160 (S 4096, H 32 / Hkv 8); each
+    against its plain version on the same inputs under the kernels
+    phase's bars (``flash_close``).  The two full shapes timed by CUDA
+    events beside their bounds (``flash_cost``), their plain versions and
+    the library (``library_attention``)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as R
+
+    g = torch.Generator(device=dev).manual_seed(seed + 192)
+    out, times = {}, {}
+    cases = [("mla_train_bf16_causal", torch.bfloat16, True, FLASH_MLA,
+              True),
+             ("d160_bwd_train_bf16_causal", torch.bfloat16, True,
+              FLASH_PIXTRAL, True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        cases.append((f"mla_ragged_{name}_G1_full", dtype, False,
+                      dict(B=2, S=1000, H=8, hkv=8, d=192, dv=128), False))
+        cases.append((f"mla_ragged_{name}_G4_causal", dtype, True,
+                      dict(B=1, S=1000, H=8, hkv=2, d=192, dv=128), False))
+    for name, dtype, causal, shape, timed in cases:
+        q, k, v, do = _flash_inputs(g, dev, dtype, **shape)
+        errs = _flash_errs(FA, R, q, k, v, do, causal)
+        if not all(e["ok"] for e in errs.values()):
+            raise AssertionError(f"flash {name}: {errs} over "
+                                 f"{ATTN_TOL[dtype]}")
+        out[name] = errs
+        if timed:
+            t = _flash_times(FA, q, k, v, do, causal=causal)
+            o, lse = FA.flash_fwd(q, k, v, causal=causal)
+            t["fwd_plain_ms"] = cuda_ms(
+                lambda: R.flash_fwd(q, k, v, causal=causal), 2, 1)
+            t["bwd_plain_ms"] = cuda_ms(lambda: R.flash_bwd(
+                q, k, v, o, lse, do, causal=causal), 2, 1)
+            c = flash_cost(q, k, v, causal)
+            t["fwd_tflops"] = c["fwd_ops"] / t["fwd_ms"] / 1e9
+            t["bwd_tflops"] = c["bwd_ops"] / t["bwd_ms"] / 1e9
+            t["library"] = library_attention(q, k, v, do, causal)
+            times[name.split("_train")[0]] = t
+            del o, lse
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    out["times"] = times
+    return out
+
+
+def kernel_key(mangled: str, kernel: str):
+    """``kernel<args>`` where the mangled name ``mangled`` names an
+    instantiation of ``kernel`` on int template arguments (``kernel``
+    alone without them), else None."""
+    if kernel not in mangled:
+        return None
+    rest = mangled.split(kernel, 1)[1]
+    if "ILi" not in rest:
+        return kernel
+    args = rest.split("ILi", 1)[1].split("EE")[0].split("ELi")
+    return f"{kernel}<{','.join(args)}>"
+
+
+def ptxas_report(log: str, kernels) -> dict:
+    """Registers and spill bytes of each instantiation of ``kernels``
+    (their names) in a ``nvcc -Xptxas=-v`` log: {"name<args>":
+    {"registers", "spill_stores", "spill_loads"}}."""
+    import re
+
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            key = next((kernel_key(m.group(1), k) for k in kernels
+                        if kernel_key(m.group(1), k)), None)
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(key, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
+
+
+# the flash backward's kernels whose registers and spills the build
+# reports; the bf16 ones at d 160 and at MLA's 192 / 128 must not spill
+FLASH_BWD_KERNELS = ("dq_mma_kernel", "dkdv_mma_kernel", "dkdv_pair_kernel",
+                     "dq_kernel", "dkdv_kernel")
+NO_SPILL = ("dq_mma_kernel<160,160>", "dq_mma_kernel<192,128>",
+            "dkdv_pair_kernel<160,160>", "dkdv_pair_kernel<192,128>")
+
+
+def flash_ptxas(libs: dict) -> dict:
+    """``ptxas_report`` of the flash backward's kernels from the build's
+    log; raises where a bf16 backward kernel of ``NO_SPILL`` spills or is
+    missing."""
+    log = libs["flash_attention"].with_suffix(".log")
+    rep = ptxas_report(log.read_text() if log.exists() else "",
+                       FLASH_BWD_KERNELS)
+    bad = {k: rep.get(k) for k in NO_SPILL
+           if rep.get(k, {}).get("spill_stores", 1)
+           or rep.get(k, {}).get("spill_loads", 1)}
+    if bad:
+        raise AssertionError(f"flash backward spills or is missing: {bad}")
+    return rep
 
 
 SSD_PATH = dict(b=1, s=32768, nh=8, dh=1024, N=16, chunk=256)
@@ -2015,15 +2196,47 @@ def hubert_train_full(dev, seed: int) -> dict:
     """``launch.train --arch hubert-xlarge`` at full width (48 layers, d
     1280, bf16, seeded random weights on the card), train_4k's sequence
     of 4096 frames at batch 1, the masked-frame loss, ``remat="dots"``,
-    8 steps (2 untimed): finite losses, the first where random weights
-    put it, and the flash launches the layers imply (the forward twice a
-    layer a step under dots remat, the backward once)."""
+    8 steps (2 untimed): ``train_run_full``'s checks."""
+    return train_run_full(HUBERT_TRAIN, seed)
+
+
+# pixtral-12b trained at full width on the card (d 160's flash backward),
+# cut in depth: 4.20 B parameters at 12 bytes each (bf16 weights and
+# gradients, AdamW's f32 moments) are ~50 GB; the 40 layers' 12.7 B would
+# be ~153 GB
+PIXTRAL_LAYERS = 10
+PIXTRAL_TRAIN = ["--arch", "pixtral-12b", "--layers", str(PIXTRAL_LAYERS),
+                 "--shape", "train_4k", "--batch", "1", "--seq", "4096",
+                 "--steps", "8", "--ckpt-every", "0", "--device", "cuda",
+                 "--log-every", "1"]
+PIXTRAL_CUT = ("40 -> 10 layers at full width: 4.20 B parameters at 12 "
+               "bytes (weights, gradients, AdamW's f32 moments) are ~50 GB")
+
+
+def pixtral_train_full(dev, seed: int) -> dict:
+    """``launch.train --arch pixtral-12b --layers 10`` at full width (d
+    5120, 32 / 8 heads of 160, bf16, ``remat="dots"``), train_4k's 4096
+    positions (1,024 of them patches) at batch 1, 8 steps (2 untimed):
+    ``train_run_full``'s checks, the flash backward at d 160 once a layer
+    a step."""
+    return dict(train_run_full(PIXTRAL_TRAIN, seed), cut=PIXTRAL_CUT)
+
+
+def train_run_full(argv: list, seed: int) -> dict:
+    """``launch.train`` with ``argv`` on the card: finite losses, the
+    first where random weights put it (``_random_ce``), and the flash
+    launches the layers imply (the forward twice a layer a step under
+    dots remat, the backward once); step p50, tokens/s, peak memory."""
+    import dataclasses as dc
+
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
 
-    cfg = get_config("hubert-xlarge")
-    args = train.parse_args(HUBERT_TRAIN + ["--seed", str(seed)])
+    args = train.parse_args(argv + ["--seed", str(seed)])
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dc.replace(cfg, n_layers=args.layers)
     torch.cuda.synchronize()
     reset_launch_counts()
     with contextlib.redirect_stdout(io.StringIO()):
@@ -2031,20 +2244,20 @@ def hubert_train_full(dev, seed: int) -> dict:
     counts = launch_counts()
     losses = report["losses"]
     if len(losses) != args.steps or not all(np.isfinite(losses)):
-        raise AssertionError(f"hubert_train_full losses {losses}")
+        raise AssertionError(f"{args.arch} train losses {losses}")
     expect = _random_ce(cfg)
     if not abs(losses[0] - expect) <= 0.5:
-        raise AssertionError(f"hubert first loss {losses[0]}, expected "
-                             f"{expect}")
+        raise AssertionError(f"{args.arch} first loss {losses[0]}, "
+                             f"expected {expect}")
     want = {k: 0 for k in counts}
     want.update(flash_fwd=2 * cfg.n_layers * args.steps,
                 flash_bwd=cfg.n_layers * args.steps)
     if counts != want:
-        raise AssertionError(f"hubert_train_full launches {counts}, "
+        raise AssertionError(f"{args.arch} train launches {counts}, "
                              f"expected {want}")
     timed = report["step_s"][TRAIN_WARM:]
     p50 = statistics.median(timed)
-    return {"args": HUBERT_TRAIN, "layers": cfg.n_layers,
+    return {"args": argv, "layers": cfg.n_layers,
             "params": cfg.param_count(), "timed_steps": len(timed),
             "step_s": report["step_s"], "step_s_p50": p50,
             "tokens_per_s": report["tokens_per_step"] / p50,
@@ -2118,14 +2331,157 @@ def pixtral_forward_full(dev, seed: int) -> dict:
 
 def frontends_full(dev, seed: int) -> dict:
     """The frontend families on the card: ``frontend_parity``,
-    ``hubert_train_full`` and ``pixtral_forward_full``."""
+    ``hubert_train_full``, ``pixtral_forward_full`` and
+    ``pixtral_train_full``."""
     import gc
 
-    out = {"frontend_parity": frontend_parity(dev, seed),
-           "hubert_train_full": hubert_train_full(dev, seed)}
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["pixtral_forward_full"] = pixtral_forward_full(dev, seed)
+    out = {"frontend_parity": frontend_parity(dev, seed)}
+    for name, fn in (("hubert_train_full", hubert_train_full),
+                     ("pixtral_forward_full", pixtral_forward_full),
+                     ("pixtral_train_full", pixtral_train_full)):
+        out[name] = fn(dev, seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+DEEPSEEK = "deepseek-v2-236b"
+# deepseek-v2-236b's forward on the card: 60 -> 4 layers (families_full's
+# cut), one 4096-token sequence
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_TIMED = 3
+
+
+def mla_parity(dev, seed: int) -> dict:
+    """The MLA model on the card against the port's CPU run: the flash
+    kernels take MLA's published (192, 128) and not the reduced config's
+    (48, 32), so the model is the reduced f32 deepseek with the real head
+    dims (nope 128, rope 64, v 128; d 128, 4 heads, a 32-wide latent,
+    top 2 of 4 experts plus 2 shared).  Its forward from the same weights
+    and tokens through the f32 kernels and through their plain versions:
+    logits within 1e-4 (the f32 kernels hold 2e-5 a call) with the same
+    argmax, aux within 1e-6; one flash launch a layer.  Then three decode
+    steps (torch on both) from a cache the forward's tokens filled
+    step by step: logits within 1e-4."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+
+    small = reduced(get_config(DEEPSEEK))
+    cfg = dataclasses.replace(small, dtype="float32", mla=dataclasses.replace(
+        small.mla, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128))
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                           device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(seed))
+    with torch.inference_mode():
+        want, want_aux = M.forward(cfg, params, {"tokens": tokens})
+        gparams = to_device(params, dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got, aux = M.forward(cfg, gparams, {"tokens": tokens.to(dev)})
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        steps = {}
+        for where, p in (("cpu", params), ("card", gparams)):
+            d = "cpu" if where == "cpu" else dev
+            state = M.decode_state(cfg, 2, 64, device=d)
+            out = []
+            for i in range(3):
+                lg, state = M.decode_step(
+                    cfg, p, state, tokens[:, i].to(d),
+                    torch.full((2,), i, dtype=torch.int32, device=d))
+                out.append(lg.cpu())
+            steps[where] = out
+    want_counts = {k: 0 for k in counts}
+    want_counts["flash_fwd"] = cfg.n_layers
+    if counts != want_counts:
+        raise AssertionError(f"mla_parity launches {counts}")
+    err = (got.cpu() - want).abs().max().item()
+    aux_err = abs(float(aux) - float(want_aux))
+    same = torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
+    dec_err = max((a - b).abs().max().item()
+                  for a, b in zip(steps["cpu"], steps["card"]))
+    if not (err <= 1e-4 and aux_err <= 1e-6 and same and dec_err <= 1e-4):
+        raise AssertionError(f"mla parity: logits {err}, aux {aux_err}, "
+                             f"argmax same {same}, decode {dec_err}")
+    return {"head_dims": M.head_dims(cfg), "logits_max_abs_err": err,
+            "aux_abs_err": aux_err, "decode_max_abs_err": dec_err,
+            "tolerance": 1e-4, "launches": counts}
+
+
+def deepseek_forward_full(dev, seed: int) -> dict:
+    """``models/model.py::forward`` under ``torch.inference_mode()`` on
+    the full-width deepseek-v2-236b (d 5120, 128 heads at dk 192 / dv
+    128, a 512-wide latent, 160 experts top 6 plus 2 shared, bf16, seeded
+    random weights on the card) cut to ``DEEPSEEK_LAYERS`` layers, over
+    one 4096-token sequence: one untimed and ``DEEPSEEK_TIMED`` timed
+    calls, each one flash-forward launch a layer and nothing else; finite
+    logits, and the next-token cross-entropy where random weights put
+    it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import cross_entropy
+
+    cfg = dataclasses.replace(get_config(DEEPSEEK), n_layers=DEEPSEEK_LAYERS)
+    seq = 4096
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (1, seq + 1), generator=g,
+                           device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    forward_s = []
+    with torch.inference_mode():
+        for i in range(1 + DEEPSEEK_TIMED):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t = time.perf_counter()
+            logits, aux = M.forward(cfg, params, {"tokens": tokens[:, :-1]})
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            counts = launch_counts()
+            if counts["flash_fwd"] != cfg.n_layers or \
+                    sum(counts.values()) != cfg.n_layers:
+                raise AssertionError(f"deepseek forward launches {counts}")
+            if i:
+                forward_s.append(dt)
+            if i < DEEPSEEK_TIMED:
+                del logits
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        if tuple(logits.shape) != (1, seq, cfg.padded_vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError("deepseek logits are not finite")
+        ce = float(cross_entropy(logits, tokens[:, 1:],
+                                 torch.ones(1, seq, device=dev)))
+        del logits
+    expect = _random_ce(cfg)
+    if not abs(ce - expect) <= 0.5:
+        raise AssertionError(f"deepseek cross-entropy {ce}, expected "
+                             f"{expect}")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params
+    p50 = statistics.median(forward_s)
+    return {"layers": cfg.n_layers, "of_layers": get_config(DEEPSEEK).n_layers,
+            "seq": seq, "params": n_params, "init_s": init_s,
+            "forward_s": forward_s, "forward_s_p50": p50,
+            "tokens_per_s": seq / p50, "peak_memory_gb": peak_gb,
+            "cross_entropy": ce, "cross_entropy_expected": expect,
+            "aux": float(aux), "launches": counts,
+            "cut": FAMILIES_FULL[DEEPSEEK][1]}
+
+
+def mla_full(dev, seed: int) -> dict:
+    """MLA on the card: ``mla_parity`` and ``deepseek_forward_full``."""
+    import gc
+
+    out = {"mla_parity": mla_parity(dev, seed),
+           "deepseek_forward_full": deepseek_forward_full(dev, seed)}
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2446,6 +2802,10 @@ FAMILIES_FULL = {
         8, "32 -> 8 layers: one 8-layer group, as prefill_full; the "
            "51.4 B parameters are ~103 GB in bf16"),
     "xlstm-350m": (0, None),
+    "deepseek-v2-236b": (
+        4, "60 -> 4 layers: each MLA + 160-expert MoE layer holds ~3.9 B "
+           "parameters; 4 layers and the embeddings are 16.94 B (~34 GB in "
+           "bf16), the 236 B ~472 GB"),
 }
 
 
@@ -2453,10 +2813,26 @@ def _slot_leaves(state, slot):
     return [t[:, slot].clone() for pos in state for t in pos.values()]
 
 
+# the length ``check_recurrent_slots`` steps at: the attention row it writes
+ROW = 5
+
+
+def _row_moved(a, b) -> bool:
+    """An attention leaf of one slot, (group, S_max, ...), before (``a``)
+    and after (``b``) a granted step: row ``ROW`` rewritten, every other
+    row bit-identical."""
+    rest = torch.ones(a.shape[1], dtype=torch.bool, device=a.device)
+    rest[ROW] = False
+    return not torch.equal(a[:, ROW], b[:, ROW]) \
+        and torch.equal(a[:, rest], b[:, rest])
+
+
 def check_recurrent_slots(eng, dev, seed: int) -> dict:
     """On the card, with every state leaf filled from a seeded draw: a
     step whose gate denies slot 0 and grants slot 1 leaves slot 0's whole
-    state bit-identical and moves every recurrent leaf of slot 1; a slot
+    state bit-identical (GQA's k/v, MLA's latent ckv/krope, the recurrent
+    states), moves every recurrent leaf of slot 1 and, in every attention
+    leaf of slot 1, row ``ROW`` (the step's length) and no other; a slot
     frozen to host memory and thawed into another comes back
     bit-identical.  Runs after a served run (its launches not counted)."""
     caches, m = eng.caches, eng.ecfg.max_slots
@@ -2473,19 +2849,21 @@ def check_recurrent_slots(eng, dev, seed: int) -> dict:
     gate = torch.zeros(m, dtype=torch.bool, device=dev)
     gate[1] = True
     _, _, granted, _ = eng._device_step(
-        torch.arange(m, **i32), torch.full((m,), 5, **i32), dom,
+        torch.arange(m, **i32), torch.full((m,), ROW, **i32), dom,
         torch.zeros(m, **i32), gate, False)
     torch.cuda.synchronize()
     if granted.cpu().tolist() != gate.cpu().tolist():
         raise AssertionError(f"gate {granted.tolist()}")
     kept = all(torch.equal(a, b) for a, b in
                zip(before[0], _slot_leaves(caches.state, 0)))
+    after = _slot_leaves(caches.state, 1)
     moved = [not torch.equal(a, b) for a, b, k in
-             zip(before[1], _slot_leaves(caches.state, 1), kinds)
-             if k != "attn"]
-    if not kept or not moved or not all(moved):
+             zip(before[1], after, kinds) if k != "attn"]
+    rows = [_row_moved(a, b) for a, b, k in zip(before[1], after, kinds)
+            if k == "attn"]
+    if not kept or not (moved or rows) or not all(moved + rows):
         raise AssertionError(f"denied slot kept {kept}, granted moved "
-                             f"{moved}")
+                             f"{moved}, granted attention rows {rows}")
     free = [caches.alloc_slot() for _ in range(caches.n_free)]
     want = _slot_leaves(caches.state, free[-1])
     for slot in free[:-1]:
@@ -2500,6 +2878,7 @@ def check_recurrent_slots(eng, dev, seed: int) -> dict:
     caches.free_slot(slot)
     return {"denied_slot_bit_identical": kept,
             "granted_recurrent_leaves_moved": len(moved),
+            "granted_attention_leaves_row_only": len(rows),
             "freeze_thaw_bit_identical": thawed,
             "thaw_slot": (free[-1], slot)}
 
@@ -2512,7 +2891,9 @@ def families_full(dev, seed: int, refs: CpuRefs,
     LOW ``memory.high``: each report equal to the same config's reduced
     CPU run; the gate read on the live table after each step; one charge
     and one gate launch a step and a decode launch per attention layer a
-    step.  On Jamba and xLSTM, ``check_recurrent_slots``.  Step p50/p95,
+    step (none for MLA: its latent decode is torch, as the reference's is
+    lax).  On Jamba, xLSTM and deepseek-v2 (its latent rows),
+    ``check_recurrent_slots``.  Step p50/p95,
     tokens/s and peak memory of each, beside serve_full's llama3.2-3b p50
     of this call.  Each model is freed before the next is built."""
     import gc
@@ -2542,10 +2923,9 @@ def families_full(dev, seed: int, refs: CpuRefs,
         counts = launch_counts()
         steps, report, cfg = eng.step_no, eng.report(), eng.cfg
         full = get_config(arch)
-        attn = cfg.layer_kinds().count("attn") * cfg.n_groups
         want = {k: 0 for k in counts}
         want.update(fused_charge_batch=steps, fused_slot_gate=steps,
-                    decode_attention=attn * steps)
+                    decode_attention=decode_layers(cfg) * steps)
         if counts != want:
             raise AssertionError(f"{arch}: launches {counts}, expected "
                                  f"{want}")
@@ -2575,7 +2955,8 @@ def families_full(dev, seed: int, refs: CpuRefs,
                "gated_slot_steps": gated[0], "launches": counts,
                "report_equals_serve_full": (served is not None
                                             and report == served["report"])}
-        if any(k != "attn" for k in cfg.layer_kinds()):
+        if cfg.mla is not None or any(k != "attn"
+                                      for k in cfg.layer_kinds()):
             run["recurrent"] = check_recurrent_slots(eng, dev, seed)
         out["runs"][arch] = run
         del eng
@@ -2584,12 +2965,20 @@ def families_full(dev, seed: int, refs: CpuRefs,
     return out
 
 
-def _launches_as_steps(counts: dict, steps: int, layers: int,
-                       what: str) -> None:
+def decode_layers(cfg) -> int:
+    """The decode kernel's launches a step: one per GQA attention layer;
+    MLA decodes its latent cache in torch (the reference's lax code)."""
+    if cfg.mla is not None:
+        return 0
+    return cfg.layer_kinds().count("attn") * cfg.n_groups
+
+
+def _launches_as_steps(counts: dict, steps: int, cfg, what: str) -> None:
     """One charge launch a step (over every shard), the decode kernel a
-    layer a step, nothing else."""
+    GQA layer a step, nothing else."""
     want = {k: 0 for k in counts}
-    want.update(fused_charge_batch=steps, decode_attention=layers * steps)
+    want.update(fused_charge_batch=steps,
+                decode_attention=decode_layers(cfg) * steps)
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 
@@ -2647,7 +3036,7 @@ def control_full(dev, seed: int, refs: CpuRefs,
         epoch = be.epoch
         usage = eng.cg.usage("/")
         eng.close()
-        _launches_as_steps(counts, eng.step_no, eng.cfg.n_layers, name)
+        _launches_as_steps(counts, eng.step_no, eng.cfg, name)
         if report != ref or not eng.done():
             raise AssertionError(f"{name}: full-width report differs from "
                                  f"the reduced CPU run:\n{report}\n{ref}")
@@ -2684,7 +3073,7 @@ def control_full(dev, seed: int, refs: CpuRefs,
         step_ms.append((time.perf_counter() - t) * 1e3)
     counts = launch_counts()
     report = eng.report()
-    _launches_as_steps(counts, eng.step_no, cfg.n_layers, "sharded")
+    _launches_as_steps(counts, eng.step_no, cfg, "sharded")
     placement = eng.cg.backend.placement()
     if placement != {"/fg": 0, "/bg": 1}:
         raise AssertionError(f"tenants not one a device group: {placement}")
@@ -2727,17 +3116,19 @@ def main() -> None:
                     default="kernels,engine_parity,engine_full,conformance,"
                             "replay,serve_full,families_full,control_full,"
                             "train_parity,train_full,prefill_parity,"
-                            "prefill_full,frontends_full",
+                            "prefill_full,frontends_full,mla_full",
                     help="comma-separated phases to run, of kernels, "
                          "engine_parity, engine_full, conformance, replay, "
                          "serve_full, families_full, control_full, "
                          "train_parity, train_full, prefill_parity, "
-                         "prefill_full, frontends_full, and profile, "
+                         "prefill_full, frontends_full, mla_full, and "
+                         "profile, "
                          "train_profile and prefill_profile (not in the "
                          "default run); the result line is printed only "
                          "when kernels, engine_full, conformance, "
                          "serve_full, families_full, control_full, "
-                         "train_full, prefill_full and frontends_full ran")
+                         "train_full, prefill_full, frontends_full and "
+                         "mla_full ran")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -2774,6 +3165,7 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
     rows = None
     if "kernels" in phases:
         emit({"phase": "sass", **kernel_sass(libs)})
+        emit({"phase": "ptxas", "flash_backward": flash_ptxas(libs)})
         secs = {}
 
         def timed(check):
@@ -2789,13 +3181,15 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
         pag = timed(check_paged)
         fla = timed(check_flash)
         front = timed(check_flash_frontends)
+        mla = timed(check_flash_mla)
         ssd = timed(check_ssd)
         emit({"phase": "kernels", "card": card, "seconds": secs,
               "enforcement": enf,
               "enforcement_shards": shards,
               "enforcement_times": tim, "decode_attention": dec,
               "paged_decode_attention": pag, "flash_attention": fla,
-              "flash_attention_frontends": front, "ssd_scan": ssd})
+              "flash_attention_frontends": front, "flash_attention_mla": mla,
+              "ssd_scan": ssd})
         rows = {
             "fused_charge_batch": dict(
                 source="src/repro_torch/csrc/enforcement.cu",
@@ -2821,13 +3215,15 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
                 **decode_row(pag)),
         }
         cases = dict(fla, **{k: v for k, v in front.items()
-                             if k.startswith(("d160", "hubert"))})
+                             if k.startswith(("d160", "hubert"))},
+                     **{k: v for k, v in mla.items() if k != "times"})
         hubert = front["times"]["hubert_d80_full"]
         for name, parts in (("flash_fwd", ("out", "lse")),
                             ("flash_bwd", ("dq", "dk", "dv"))):
             errs = [e[k] for case, e in cases.items()
                     if case.startswith(("train", "ragged", "cross",
-                                        "head", "group", "d160", "hubert"))
+                                        "head", "group", "d160", "hubert",
+                                        "mla"))
                     for k in parts if k in e]
             pas = name.split("_")[1]
             rows[name] = dict(
@@ -2843,6 +3239,16 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
                                         if k.startswith(pas)}})
         rows["flash_fwd"]["extra"]["pixtral_d160"] = \
             front["times"]["pixtral_d160"]
+        for name in ("flash_fwd", "flash_bwd"):
+            pas = name.split("_")[1]
+            for shape in ("mla", "d160_bwd"):
+                t = mla["times"][shape]
+                if shape == "d160_bwd" and pas == "fwd":
+                    continue
+                rows[name]["extra"][f"{shape}_full"] = dict(
+                    {k: v for k, v in t.items() if k.startswith(pas)},
+                    library_ms=t["library"][f"{pas}_ms"],
+                    library_backend=t["library"]["backend"])
         ssd_errs = [e[k] for case, e in ssd.items()
                     if case not in ("timing", "kernel_ms")
                     for k in ("y", "h")]
@@ -2896,6 +3302,10 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
     if "frontends_full" in phases:
         fronts = frontends_full(dev, seed)
         emit({"phase": "frontends_full", "card": card, **fronts})
+    mla_run = None
+    if "mla_full" in phases:
+        mla_run = mla_full(dev, seed)
+        emit({"phase": "mla_full", "card": card, **mla_run})
     if "profile" in phases:
         emit({"phase": "profile", "card": card,
               **profile_step(dev, seed)})
@@ -2907,7 +3317,7 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
               **prefill_profile(dev, seed)})
     if rows is None or full is None or train is None or prefill is None \
             or conf is None or served is None or ctrl is None or fams is None \
-            or fronts is None:
+            or fronts is None or mla_run is None:
         return
     launches = dict(full["launches"], **train["launches"],
                     ssd_scan=prefill["launches_per_prefill"]["ssd_scan"])
@@ -2922,11 +3332,14 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
                **{f"conformance_faulty_{k}": c["launches"]
                   for k, c in conf["faulty"].items()},
                **{f"control_full_{k}": c["launches"]
-                  for k, c in ctrl.items()},
+                  for k, c in ctrl.items() if isinstance(c, dict)},
                **{f"families_full_{k}": c["launches"]
                   for k, c in fams["runs"].items()},
                **{f"frontends_full_{k}": fronts[k]["launches"]
-                  for k in ("hubert_train_full", "pixtral_forward_full")}}
+                  for k in ("hubert_train_full", "pixtral_forward_full",
+                            "pixtral_train_full")},
+               **{f"mla_full_{k}": mla_run[k]["launches"]
+                  for k in ("mla_parity", "deepseek_forward_full")}}
     # the forward's errors include those at the prefill shape
     fwd = rows["flash_fwd"]
     for e in prefill["flash_fwd_prefill_errs"].values():

@@ -1,10 +1,10 @@
 // Hopper building blocks for the port's hand-written kernels, as inline
 // PTX: shared-memory addresses, mbarriers, TMA tile loads, warpgroup MMA
 // (wgmma) with its shared-memory descriptors, the sm_80 tools the
-// backward uses (cp.async, ldmatrix, mma.sync), and cluster barriers and
-// distributed shared memory.  Header-only; every function is a thin
-// wrapper around one or a few PTX instructions, named after them.  Needs
-// sm_90a (wgmma).
+// backward uses (cp.async, ldmatrix, mma.sync), named barriers, and
+// cluster barriers and distributed shared memory.  Header-only; every
+// function is a thin wrapper around one or a few PTX instructions, named
+// after them.  Needs sm_90a (wgmma).
 #pragma once
 
 #include <cuda.h>
@@ -315,6 +315,19 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
                :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Named barriers that warps may reach from different places in the code
+// (``barrier`` without ``.aligned``): ``bar_sync`` waits until ``n``
+// threads, whole warps, have arrived at barrier ``id`` (0 is the one
+// __syncthreads uses); ``bar_arrive`` adds this warp's threads and goes on,
+// a producer's half.  Shared-memory writes made before the arrival are
+// visible to the threads that waited.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("barrier.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("barrier.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
 // Four 8x8 bf16 matrices from shared memory; lane i gives the address of

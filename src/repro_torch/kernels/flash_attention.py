@@ -14,12 +14,12 @@ bounds the kernels and what the design does about it.
 ``flash_fwd`` and ``flash_bwd`` launch the kernels on CUDA tensors (or
 raise) and run the plain versions of ``kernels/ref.py`` on CPU tensors.
 ``FlashAttention`` joins them as a ``torch.autograd.Function``;
-``flash_attention`` is its entry point.  The forward takes head dims
-``FWD_HEAD_DIMS`` on the card, the backward ``BWD_HEAD_DIMS``: d 160
-(pixtral-12b) has a forward only, so on CUDA ``flash_attention``
-refuses it before any work where a gradient will be asked for (ROADMAP
-Queue 2 A1).  Masking follows the Pallas kernel: a causal query attends
-keys at or before its own position (``qpos >= kpos``), and any S works.
+``flash_attention`` is its entry point.  q and k are ``dk`` wide, v and
+the output ``dv``: on the card both passes take the pairs ``HEAD_DIMS``,
+(d, d) at every family's head dim and MLA's (192, 128), and refuse any
+other before a launch.  Masking follows the Pallas kernel: a causal query
+attends keys at or before its own position (``qpos >= kpos``), and any S
+works.
 """
 from __future__ import annotations
 
@@ -30,25 +30,28 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-FWD_HEAD_DIMS = (32, 64, 80, 128, 160)
-BWD_HEAD_DIMS = (32, 64, 80, 128)
+# the (dk, dv) pairs the kernels take, forward and backward
+HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (128, 128), (160, 160),
+             (192, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def flash_fwd(q, k, v, *, causal: bool = True,
               scale: Optional[float] = None):
-    """q (B,S,H,d), k/v (B,Sk,Hkv,d) -> (out (B,S,H,d), lse (B,H,S) f32):
-    the CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
+    """q (B,S,H,dk), k (B,Sk,Hkv,dk), v (B,Sk,Hkv,dv) -> (out (B,S,H,dv),
+    lse (B,H,S) f32): the CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors.  ``scale`` defaults to dk ** -0.5."""
     if not q.is_cuda:
         return ref.flash_fwd(q, k, v, causal=causal, scale=scale)
-    _check(q, k, v, FWD_HEAD_DIMS)
-    B, S, H, d = q.shape
-    out = torch.empty_like(q)
+    _check(q, k, v)
+    B, S, H, dk = q.shape
+    dv = v.shape[3]
+    out = torch.empty(B, S, H, dv, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     err = _lib().flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, S, k.shape[1], H, k.shape[2], d,
-        _DTYPES[q.dtype], int(causal), float(scale or d ** -0.5),
+        lse.data_ptr(), B, S, k.shape[1], H, k.shape[2], dk, dv,
+        _DTYPES[q.dtype], int(causal), float(scale or dk ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_fwd")
     flash_fwd.launches += 1
@@ -61,17 +64,18 @@ flash_fwd.launches = 0
 def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
               scale: Optional[float] = None):
     """Gradients (dq, dk, dv) in the input dtypes from the forward's
-    ``out`` and ``lse`` and the output gradient ``dout``: the CUDA
-    kernels (Delta pre-pass, dq pass, dk/dv pass) on CUDA tensors, the
-    plain version on CPU tensors."""
+    ``out`` and ``lse`` and the output gradient ``dout`` (B,S,H,dv): the
+    CUDA kernels (Delta pre-pass, dq pass, dk/dv pass) on CUDA tensors,
+    the plain version on CPU tensors."""
     if not q.is_cuda:
         return ref.flash_bwd(q, k, v, out, lse, dout, causal=causal,
                              scale=scale)
-    _check(q, k, v, BWD_HEAD_DIMS)
-    B, S, H, d = q.shape
+    _check(q, k, v)
+    B, S, H, dk = q.shape
+    dv = v.shape[3]
     for name, t, dtype in (("out", out, q.dtype), ("dout", dout, q.dtype),
                            ("lse", lse, torch.float32)):
-        shape = (B, H, S) if name == "lse" else tuple(q.shape)
+        shape = (B, H, S) if name == "lse" else (B, S, H, dv)
         if tuple(t.shape) != shape or t.dtype != dtype \
                 or t.device != q.device or not t.is_contiguous() \
                 or t.data_ptr() % 16:
@@ -79,18 +83,18 @@ def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                              f"{dtype} tensor of shape {shape} on "
                              f"{q.device}")
     dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dk_ = torch.empty_like(k)
+    dv_ = torch.empty_like(v)
     delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     err = _lib().flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, S, k.shape[1], H, k.shape[2], d,
-        _DTYPES[q.dtype], int(causal), float(scale or d ** -0.5),
+        dk_.data_ptr(), dv_.data_ptr(), B, S, k.shape[1], H, k.shape[2], dk,
+        dv, _DTYPES[q.dtype], int(causal), float(scale or dk ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_bwd")
     flash_bwd.launches += 1
-    return dq, dk, dv
+    return dq, dk_, dv_
 
 
 flash_bwd.launches = 0
@@ -118,33 +122,24 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None):
-    """q (B,S,H,d), k/v (B,Sk,Hkv,d) -> (B,S,H,d), differentiable.  On
-    CUDA tensors a head dim with no backward kernel is refused here,
-    before any launch, when a gradient will be asked for (grad mode on
-    and an input that requires it; inside the Function's forward grad
-    mode is always off)."""
-    if q.is_cuda and q.dim() == 4 and q.shape[-1] not in BWD_HEAD_DIMS \
-            and torch.is_grad_enabled() \
-            and any(t.requires_grad for t in (q, k, v)):
-        raise ValueError(
-            f"head dim {q.shape[-1]}: the flash backward takes "
-            f"{BWD_HEAD_DIMS} on the card, and a gradient will be asked for "
-            "(the forward alone runs under torch.no_grad or inference_mode; "
-            "ROADMAP Queue 2 A1)")
+    """q (B,S,H,dk), k (B,Sk,Hkv,dk), v (B,Sk,Hkv,dv) -> (B,S,H,dv),
+    differentiable."""
     return FlashAttention.apply(q, k, v, causal, scale)
 
 
-def _check(q, k, v, head_dims):
-    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or tuple(k.shape[:3]) != tuple(v.shape[:3]):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}: want (B,S,H,d) and "
-                         f"(B,Sk,Hkv,d)")
-    B, S, H, d = q.shape
-    if k.shape[0] != B or k.shape[3] != d or H % k.shape[2] or S == 0 \
+                         f"v {tuple(v.shape)}: want (B,S,H,dk), "
+                         f"(B,Sk,Hkv,dk) and (B,Sk,Hkv,dv)")
+    B, S, H, dk = q.shape
+    if k.shape[0] != B or k.shape[3] != dk or H % k.shape[2] or S == 0 \
             or k.shape[1] == 0:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)}")
-    if d not in head_dims:
-        raise ValueError(f"head dim {d}: the kernel takes {head_dims}")
+    if (dk, v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(f"head dims (dk {dk}, dv {v.shape[3]}): the "
+                         f"kernels take (dk, dv) in {HEAD_DIMS}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash attention takes f32 or bf16 q/k/v of one "
                          f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -158,8 +153,8 @@ def _lib():
     lib = _build.load("flash_attention")
     if lib.flash_fwd.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd.argtypes = [P] * 5 + [I] * 8 + [F, P]
+        lib.flash_fwd.argtypes = [P] * 5 + [I] * 9 + [F, P]
         lib.flash_fwd.restype = I
-        lib.flash_bwd.argtypes = [P] * 10 + [I] * 8 + [F, P]
+        lib.flash_bwd.argtypes = [P] * 10 + [I] * 9 + [F, P]
         lib.flash_bwd.restype = I
     return lib

@@ -8,8 +8,8 @@ runs the continuous-batching engine in one of the controller modes:
   userspace  — poll/react daemon gating (responsiveness baseline)
   nolimit    — accounting only (no isolation baseline)
 
-``--arch`` takes every registered architecture, all decoders the engine
-serves (attention, Mamba-2 hybrid, mLSTM/sLSTM).  It runs on the card
+``--arch`` takes every registered decoder the engine serves (GQA and
+MLA attention, Mamba-2 hybrid, mLSTM/sLSTM).  It runs on the card
 unless ``--device cpu`` is given.  ``--reduced`` serves the same-family
 miniature in f32 (the reference driver's model); otherwise the
 full-width model serves in its dtype with random weights from a seeded

@@ -11,15 +11,20 @@
 
 It runs on the card unless ``--device cpu`` is given.  ``--reduced``
 trains the same-family miniature in f32 with no remat; otherwise the
-full-width model trains in its dtype with ``remat="dots"``.  The audio
-encoder ``hubert-xlarge`` trains through the masked-frame loss (its
-batches carry frames and a mask; the loss weights are the mask);
-``pixtral-12b`` trains on the CPU, and on the card only reduced: its
-full-width head dim 160 has no flash backward yet.
+full-width model trains in its dtype with ``remat="dots"``; ``--layers``
+cuts the depth (a multiple of the config's layer group) for a model whose
+weights, gradients and optimizer moments outgrow one card at full depth.
+The audio encoder ``hubert-xlarge`` trains through the masked-frame loss
+(its batches carry frames and a mask; the loss weights are the mask).
+Every architecture with a flash backward at its (dk, dv) trains on the
+card (``models/model.py::check_card_training``); one with Mamba layers
+does not (no SSD gradient).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
       --steps 100 --batch 8 --seq 128 --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch pixtral-12b \\
+      --layers 10 --batch 1 --seq 4096 --steps 8 --ckpt-every 0
 """
 from __future__ import annotations
 
@@ -71,6 +76,11 @@ def run(args) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(reduced(cfg), dtype="float32")
+    if args.layers:
+        if args.layers % cfg.group_size:
+            raise ValueError(f"--layers {args.layers} is no multiple of "
+                             f"{cfg.name}'s group of {cfg.group_size}")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if torch.device(args.device).type == "cuda":
         M.check_card_training(cfg)
     dev = resolve_device(args.device)
@@ -147,6 +157,9 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="llama3.2-3b")
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (a multiple of "
+                         "the config's layer group); 0 keeps the config's")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     ap.add_argument("--steps", type=int, default=50)

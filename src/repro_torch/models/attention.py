@@ -1,10 +1,14 @@
-"""GQA attention: full sequence and decode (port of
-``repro/models/attention.py:47-107``).
+"""Attention mixers, GQA and MLA (DeepSeek-V2): full sequence and decode
+(port of ``repro/models/attention.py``).
 
-Projections keep the reference's flattened ``(d, H*hd)`` layout.  The
-full-sequence form runs the hand-written flash kernels; the decode form
-writes the per-slot cache ``{k, v}: (B, S_max, Hkv, hd)`` in place at
-row ``lengths[b]`` (the reference returns an updated copy).
+GQA projections keep the reference's flattened ``(d, H*hd)`` layout, MLA
+its stacked ``(rank, H, width)`` ones.  The full-sequence forms run the
+hand-written flash kernels (MLA at dk 192 / dv 128); the decode forms
+write the per-slot cache in place at row ``lengths[b]`` (the reference
+returns an updated copy): ``{k, v}: (B, S_max, Hkv, hd)`` for GQA,
+decoded by the decode kernel, and the latent ``{ckv: (B, S_max, L),
+krope: (B, S_max, rd)}`` for MLA, decoded in torch as the reference's
+lax code does.
 """
 from __future__ import annotations
 
@@ -12,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, rope_table
+from repro_torch.models.layers import apply_rope, rmsnorm, rope_table
 
 
 def _heads(t, hd):
@@ -54,3 +58,122 @@ def gqa_decode(cfg: ModelConfig, p, x, cache, lengths):
     o = ops.decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
                              lengths + 1)
     return (o.reshape(B, -1) @ p["wo"])[:, None]
+
+
+# ====================================================================== MLA
+
+
+def _rms(x, scale, eps):
+    """The reference's ``_rms``: RMSNorm in f32, cast back to x's dtype."""
+    return rmsnorm({"scale": scale}, x, eps)
+
+
+def _proj(x, w):
+    """x (..., n) @ w (n, *out) -> (..., *out): one 2-D product (the
+    reference's einsums over a stacked weight)."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
+                                                   *w.shape[1:])
+
+
+def _mla_q(cfg: ModelConfig, p, x, cos, sin):
+    """Shared q path -> (q_nope (B,S,H,nd), q_rope (B,S,H,rd))."""
+    m = cfg.mla
+    ql = _rms(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = _proj(ql, p["w_uq"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], cos, sin)
+    return q_nope, q_rope
+
+
+def mla_forward(cfg: ModelConfig, p, x, cos, sin, *, causal: bool = True):
+    """Prefill/train MLA (``attention.py:144-167`` of the reference): the
+    latent expanded to per-head K/V, k_rope broadcast over the heads, the
+    flash kernels at dk = nope + rope (192) and dv (128), scale dk**-0.5.
+    x: (B, S, d) -> (B, S, d); cos/sin: (S, rd/2)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, L = cfg.n_heads, m.kv_lora_rank
+    q_nope, q_rope = _mla_q(cfg, p, x, cos, sin)
+    dkv = x @ p["w_dkv"]
+    ckv = _rms(dkv[..., :L], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., None, L:], cos, sin)      # (B, S, 1, rd)
+    k_nope = _proj(ckv, p["w_uk"])
+    v = _proj(ckv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)],
+                  dim=-1)
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    o = ops.flash_attention(q, k, v.contiguous(), causal=causal,
+                            scale=qk_dim ** -0.5)
+    return o.reshape(B, S, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
+
+
+def mla_decode(cfg: ModelConfig, p, x, cache, lengths):
+    """Absorbed-matrices MLA decode against the latent cache
+    (``attention.py:179-245`` of the reference): W_UK is absorbed into q and
+    W_UV into the output, so the latent ``{ckv (B,S_max,L), krope
+    (B,S_max,rd)}`` is attended directly, in blocks of min(2048, S_max)
+    under an f32 online softmax, products of the cache's dtype accumulated
+    in f32.  The reference's code is lax, not a kernel, so this is torch on
+    every device.  Writes this token's latent row ``lengths[b]`` in place
+    and returns out (B, 1, d)."""
+    m = cfg.mla
+    B = x.shape[0]
+    H, L = cfg.n_heads, m.kv_lora_rank
+    cos, sin = rope_table(1, m.qk_rope_head_dim, cfg.rope_theta,
+                          positions=lengths[:, None])
+    q_nope, q_rope = _mla_q(cfg, p, x, cos, sin)          # (B, 1, H, *)
+    dkv = x @ p["w_dkv"]
+    ckv_new = _rms(dkv[..., :L], p["kv_norm"], cfg.norm_eps)
+    krope_new = apply_rope(dkv[..., None, L:], cos, sin)[:, :, 0]
+    ckv, krope = cache["ckv"], cache["krope"]
+    bidx = torch.arange(B, device=x.device)
+    rows = lengths.long()
+    ckv[bidx, rows] = ckv_new[:, 0].to(ckv.dtype)
+    krope[bidx, rows] = krope_new[:, 0].to(krope.dtype)
+
+    q_abs = torch.einsum("bhk,lhk->bhl", q_nope[:, 0], p["w_uk"])
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    qf = (q_abs * scale).to(ckv.dtype).float()
+    qr = (q_rope[:, 0] * scale).to(krope.dtype).float()
+    s_max = ckv.shape[1]
+    bs = min(2048, s_max)
+    live = lengths.long() + 1
+    acc = torch.zeros(B, H, L, dtype=torch.float32, device=x.device)
+    mx = torch.full((B, H), float("-inf"), dtype=torch.float32,
+                    device=x.device)
+    l = torch.zeros(B, H, dtype=torch.float32, device=x.device)
+    # the reference's S_max // bs whole blocks: a tail past the last one
+    # is not attended (the engine's S_max is a multiple of bs)
+    for i in range(s_max // bs):
+        cb = ckv[:, i * bs:(i + 1) * bs].float()
+        rb = krope[:, i * bs:(i + 1) * bs].float()
+        s = (torch.einsum("bhl,bsl->bhs", qf, cb)
+             + torch.einsum("bhr,bsr->bhs", qr, rb))
+        pos = i * bs + torch.arange(bs, device=x.device)
+        s = torch.where((pos[None] < live[:, None])[:, None], s,
+                        torch.full_like(s, -1e30))
+        m_new = torch.maximum(mx, s.amax(-1))
+        alpha = torch.exp(mx - m_new)
+        pr = torch.exp(s - m_new[..., None])
+        l = l * alpha + pr.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhs,bsl->bhl", pr.to(ckv.dtype).float(), cb)
+        mx = m_new
+    o_lat = (acc / torch.clamp(l, min=1e-30)[..., None]).to(x.dtype)
+    o = torch.einsum("bhl,lhv->bhv", o_lat.float(),
+                     p["w_uv"].float()).to(x.dtype)
+    return (o.reshape(B, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1]))[:, None]
+
+
+# ================================================================ dispatch
+
+
+def attn_forward(cfg: ModelConfig, p, x, cos, sin, *, causal: bool = True):
+    fn = mla_forward if cfg.mla is not None else gqa_forward
+    return fn(cfg, p, x, cos, sin, causal=causal)
+
+
+def attn_decode(cfg: ModelConfig, p, x, cache, lengths):
+    fn = mla_decode if cfg.mla is not None else gqa_decode
+    return fn(cfg, p, x, cache, lengths)

@@ -6,12 +6,16 @@ parameter and decode-state layouts.  A layer group follows
 ``cfg.layer_kinds()`` x ``cfg.ffn_kinds()``: GQA attention or a Mamba-2
 mixer, an mLSTM or an sLSTM block, with a dense, MoE or no FFN (Jamba: 7
 Mamba + 1 attention layer a group, MoE every other layer; xLSTM: 7 mLSTM
-+ 1 sLSTM, no FFN).  Parameters keep the JAX package's tree:
++ 1 sLSTM, no FFN).  Attention is GQA, or MLA
+(``deepseek-v2-236b``: a low-rank q, a latent k/v, dk 192 / dv 128).
+Parameters keep the JAX package's tree:
 ``embed.tok`` (and ``embed.head`` when untied), per-position ``groups``
 whose leaves are stacked on a leading ``n_groups`` axis, and
 ``out_norm``.  The decode state is a per-position list of stacked
-``{k, v}: (n_groups, B, S_max, Hkv, hd)`` caches (attention), or
-recurrent states whose every leaf is ``(n_groups, B, ...)``:
+``{k, v}: (n_groups, B, S_max, Hkv, hd)`` caches (GQA), ``{ckv:
+(n_groups, B, S_max, L), krope: (n_groups, B, S_max, rd)}`` latent
+caches (MLA), or recurrent states whose every leaf is ``(n_groups, B,
+...)``:
 ``{conv, h f32}`` (Mamba), ``{C, n, m f32, conv}`` (mLSTM) and
 ``{c, n, m, h}`` f32 (sLSTM).  The embedding fuses the reference's
 frontend stubs: an audio model (``hubert-xlarge``, encoder-only and
@@ -19,8 +23,7 @@ bidirectional) embeds precomputed frames through ``embed.frame_proj``
 and puts ``embed.mask_emb`` where the batch's mask holds; a vision model
 (``pixtral-12b``) replaces its first token positions by patch embeddings
 through ``embed.patch_proj`` (early fusion).  An encoder-only model has
-no decode step, as in the reference.  MLA is not ported (ROADMAP Queue 1
-item 7c.3).
+no decode step, as in the reference.
 
 The reference scans the layer groups under ``jax.checkpoint``; here the
 groups are a plain loop, each under ``torch.utils.checkpoint`` as
@@ -41,10 +44,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.controller import resolve_device
-from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm, xlstm
-from repro_torch.models.attention import gqa_decode, gqa_forward
+from repro_torch.models.attention import attn_decode, attn_forward
 from repro_torch.models.layers import (Leaf, cross_entropy, embed_tokens,
                                        lm_head, mlp, rmsnorm, rope_table)
 from repro_torch.perf import DEFAULT_PERF, PerfConfig
@@ -52,17 +55,23 @@ from repro_torch.perf import DEFAULT_PERF, PerfConfig
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA is not ported (ROADMAP Queue 1 item 7c.3)")
-
-
 def _check_decodes(cfg: ModelConfig) -> None:
     """The reference's refusal of ``decode_step`` (``model.py:208-209``)."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only; no decode step")
-    _check_ported(cfg)
+
+
+def head_dims(cfg: ModelConfig) -> tuple:
+    """The (dk, dv) widths of the config's attention: (nope + rope, v)
+    under MLA, else (head_dim, head_dim)."""
+    m = cfg.mla
+    if m is not None:
+        return m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    return cfg.head_dim_, cfg.head_dim_
+
+
+def _rope_dim(cfg: ModelConfig) -> int:
+    return cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.head_dim_
 
 
 def check_card_training(cfg: ModelConfig) -> None:
@@ -73,11 +82,11 @@ def check_card_training(cfg: ModelConfig) -> None:
             f"{cfg.name}: training on the card needs a gradient of the SSD "
             "scan, which the reference's kernel lacks too (ssd_pallas is "
             "forward-only); ROADMAP Queue 1 item 7")
-    if "attn" in cfg.layer_kinds() and cfg.head_dim_ not in BWD_HEAD_DIMS:
+    if "attn" in cfg.layer_kinds() and head_dims(cfg) not in HEAD_DIMS:
         raise NotImplementedError(
-            f"{cfg.name}: training on the card needs the flash backward at "
-            f"head dim {cfg.head_dim_}, which the port's kernel does not "
-            f"take yet (it takes {BWD_HEAD_DIMS}); ROADMAP Queue 2 A1")
+            f"{cfg.name}: training on the card needs the flash kernels at "
+            f"(dk, dv) {head_dims(cfg)}, which they do not take (they take "
+            f"{HEAD_DIMS})")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -86,6 +95,17 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _mixer_leaves(cfg: ModelConfig, kind: str) -> dict:
     d = cfg.d_model
+    if kind == "attn" and cfg.mla is not None:
+        m, H = cfg.mla, cfg.n_heads
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return {"w_dq": Leaf((d, m.q_lora_rank)),
+                "q_norm": Leaf((m.q_lora_rank,), "ones"),
+                "w_uq": Leaf((m.q_lora_rank, H, qk)),
+                "w_dkv": Leaf((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+                "kv_norm": Leaf((m.kv_lora_rank,), "ones"),
+                "w_uk": Leaf((m.kv_lora_rank, H, m.qk_nope_head_dim)),
+                "w_uv": Leaf((m.kv_lora_rank, H, m.v_head_dim)),
+                "wo": Leaf((H, m.v_head_dim, d), "small")}
     if kind == "attn":
         hd = cfg.head_dim_
         return {"wq": Leaf((d, cfg.n_heads * hd)),
@@ -129,7 +149,6 @@ def _ffn_leaves(cfg: ModelConfig, kind: str) -> dict:
 def param_leaves(cfg: ModelConfig) -> dict:
     """The reference's parameter schema as a tree of ``Leaf``s, group
     leaves stacked on a leading ``n_groups`` axis."""
-    _check_ported(cfg)
     d, n = cfg.d_model, cfg.n_groups
 
     def stacked(tree):
@@ -226,7 +245,8 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> dict:
 def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cuda",
                  dtype=None) -> list:
     """Zeroed per-position decode states, stacked over groups, on
-    ``device``: ``{k, v}`` caches for attention, ``{conv, h}`` (h f32)
+    ``device``: ``{k, v}`` caches for GQA, ``{ckv, krope}`` latent caches
+    for MLA (``mla_cache_schema``), ``{conv, h}`` (h f32)
     for Mamba, ``{C, n, m, conv}`` (all but conv f32) for mLSTM and
     ``{c, n, m, h}`` (f32) for sLSTM."""
     _check_decodes(cfg)
@@ -235,6 +255,14 @@ def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cuda",
     n = cfg.n_groups
     out = []
     for kind in cfg.layer_kinds():
+        if kind == "attn" and cfg.mla is not None:
+            m = cfg.mla
+            out.append({"ckv": torch.zeros(n, batch, s_max, m.kv_lora_rank,
+                                           dtype=dtype, device=device),
+                        "krope": torch.zeros(n, batch, s_max,
+                                             m.qk_rope_head_dim, dtype=dtype,
+                                             device=device)})
+            continue
         if kind == "attn":
             shape = (n, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
             out.append({"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -299,7 +327,7 @@ def decode_step(cfg: ModelConfig, params, state, tokens, lengths, *,
             st = {k: t[layer] for k, t in state[pos].items()}
             hn = rmsnorm(p["ln1"], x, cfg.norm_eps)
             if kinds[pos] == "attn":
-                y = gqa_decode(cfg, p["mixer"], hn, st, lengths)
+                y = attn_decode(cfg, p["mixer"], hn, st, lengths)
             else:
                 y, new = _MIXER_DECODE[kinds[pos]](cfg, p["mixer"], hn, st)
                 for k, t in new.items():
@@ -396,11 +424,10 @@ def forward(cfg: ModelConfig, params, batch, *,
             perf: PerfConfig = DEFAULT_PERF, causal=None):
     """Full-sequence forward -> (logits (B,S,V) f32, aux loss scalar f32,
     the MoE load-balance losses summed over layers)."""
-    _check_ported(cfg)
     causal = (not cfg.encoder_only) if causal is None else causal
     x = _embed(cfg, params, batch)
     S = x.shape[1]
-    cos, sin = (rope_table(S, cfg.head_dim_, cfg.rope_theta, device=x.device)
+    cos, sin = (rope_table(S, _rope_dim(cfg), cfg.rope_theta, device=x.device)
                 if cfg.rope_theta else (None, None))
     per_pos = [_unstack(gp, cfg.n_groups) for gp in params["groups"]]
     kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
@@ -410,8 +437,8 @@ def forward(cfg: ModelConfig, params, batch, *,
         for kind, ffn, p in zip(kinds, ffns, group):
             hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
             if kind == "attn":
-                h = h + gqa_forward(cfg, p["mixer"], hn, cos, sin,
-                                    causal=causal)
+                h = h + attn_forward(cfg, p["mixer"], hn, cos, sin,
+                                     causal=causal)
             else:
                 h = h + _MIXER_FORWARD[kind](cfg, p["mixer"], hn, perf=perf)
             h, a = _apply_ffn(cfg, ffn, p, h, perf)

@@ -500,8 +500,9 @@ class Engine:
             granted, stalled = gate, (dom >= 0) & ~gate
         # The gated merge, in place: the reference's where() over the
         # whole state, without copying it.  decode_step writes only row
-        # lengths[b] of each attention cache; those rows are saved before
-        # the write and put back for slots the gate did not grant.  A
+        # lengths[b] of each attention cache (GQA's k/v, MLA's ckv/krope);
+        # those rows are saved before the write and put back for slots the
+        # gate did not grant, the gate shaped to each leaf's rank.  A
         # recurrent layer (Mamba, mLSTM, sLSTM) rewrites its whole state:
         # decode_step writes its new value under the gate (``keep``), so
         # a denied slot keeps its state bit for bit.
@@ -514,9 +515,11 @@ class Engine:
                  for pos in attn]
         logits, _ = M.decode_step(self.cfg, self.params, state, tokens,
                                   lengths, keep=gate)
-        keep = gate[None, :, None, None]
         for pos, old in zip(attn, saved):
             for k, t in pos.items():
+                # a saved row is (group, slot, *rest) of a (group, slot,
+                # S_max, *rest) leaf
+                keep = gate.view(1, -1, *(1,) * (t.dim() - 3))
                 t[:, bidx, rows] = torch.where(keep, t[:, bidx, rows], old[k])
         nxt = sample(logits, self.generator, temperature=e.temperature)
         nxt = torch.where(gate, nxt, tokens)

@@ -36,19 +36,19 @@ class PageAccountant:
 
 
 def check_servable(cfg: ModelConfig) -> None:
-    """The engine serves decoders of attention, Mamba, mLSTM and sLSTM
-    layers: each state leaf is ``[group, slot, ...]``, so the gated merge
-    (``serving/engine.py``), ``free_slot`` and freeze/thaw carry every
-    layout by its slot axis.  A vision model is served as the reference's
-    engine serves it: it decodes text tokens (the patches enter a
-    forward, not a decode step).  An encoder-only model has no decode
-    step (the reference's reason); MLA is not ported."""
+    """The engine serves decoders of attention (GQA or MLA), Mamba, mLSTM
+    and sLSTM layers: each state leaf is ``[group, slot, ...]`` -- a GQA
+    cache ``{k, v}: [group, slot, S_max, Hkv, hd]``, an MLA latent cache
+    ``{ckv: [group, slot, S_max, L], krope: [group, slot, S_max, rd]}``,
+    a recurrent state ``[group, slot, ...]`` -- so the gated merge
+    (``serving/engine.py``, which saves and restores row ``lengths[b]`` of
+    each attention leaf at that leaf's rank), ``free_slot`` and
+    freeze/thaw carry every layout by its slot axis.  A vision model is
+    served as the reference's engine serves it: it decodes text tokens
+    (the patches enter a forward, not a decode step).  An encoder-only
+    model has no decode step (the reference's reason)."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only; no decode step")
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the engine serves attention, Mamba, mLSTM and "
-            "sLSTM decoders; MLA is not ported (ROADMAP Queue 1 item 7c.3)")
 
 
 class SlotCaches:

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, over every head width and query-group size the decode and flash
-kernels take (d 160: the decode kernel at every cluster size and the
-flash forward alone, whose gradient is refused before any launch), the
+kernels take (d 160: the decode kernel at every cluster size and both
+flash passes; MLA's dk 192 / dv 128 in both flash passes; a pair the
+flash kernels do not take refused before any launch), the
 decode kernel's edge lengths and its one launch a
 call, the paged decode's page sizes and unequal k/v widths, the
 SSD scan's chunk, state and head widths, and every stock enforcement
@@ -408,9 +409,22 @@ FLASH_SHAPES = [  # B, S, Sk, H, Hkv, d, causal
     (1, 512, 512, 40, 8, 128, True), (1, 512, 512, 48, 8, 128, True),
     # hubert-xlarge's: MHA at d 80, bidirectional
     (1, 512, 512, 16, 16, 80, False),
+    # pixtral-12b's d 160 (the paired dk/dv kernel): G 4, causal and
+    # full, tails, S != Sk, one tile
+    (1, 512, 512, 32, 8, 160, True), (2, 333, 333, 8, 2, 160, False),
+    (1, 1000, 1000, 8, 2, 160, True), (1, 200, 333, 4, 1, 160, True),
+    (1, 128, 128, 1, 1, 160, False),
+    # deepseek-v2's MLA, (dk, dv) = (192, 128): G 1 (its H = Hkv) and G
+    # 4, causal and full, S < 128, S != Sk both ways
+    (1, 512, 512, 8, 8, (192, 128), True),
+    (2, 333, 333, 8, 2, (192, 128), False),
+    (2, 50, 50, 4, 1, (192, 128), True),
+    (1, 200, 333, 4, 4, (192, 128), True),
+    (1, 333, 200, 8, 2, (192, 128), False),
+    (1, 1000, 1000, 16, 16, (192, 128), True),
 ]
-# the forward alone at d 160 (pixtral-12b; no backward there yet): G 4,
-# causal and full, tails in both, S != Sk, one tile
+# the forward alone at d 160 (pixtral-12b's prefill): G 4, causal and
+# full, tails in both, S != Sk, one tile
 FLASH_FWD_SHAPES = [  # B, S, Sk, H, Hkv, d, causal
     (1, 512, 512, 32, 8, 160, True), (2, 333, 333, 8, 2, 160, False),
     (1, 1000, 1000, 8, 2, 160, True), (1, 200, 333, 4, 1, 160, True),
@@ -442,12 +456,18 @@ def test_flash_kernels(dev, B, S, Sk, H, hkv, d, causal, dtype):
     versions b on the same inputs: every element within 2e-5 (1 + |b|)
     in f32; in bf16 within 2e-2 (rms(b) + |b|), and 1e-2 norm-relative
     (one bf16 rounding of a large gradient passes, a wrong small value
-    does not)."""
-    g = torch.Generator(device=dev).manual_seed(S * 7 + Sk + d)
-    q = torch.randn(B, S, H, d, generator=g, device=dev).to(dtype)
-    k = torch.randn(B, Sk, hkv, d, generator=g, device=dev).to(dtype)
-    v = torch.randn(B, Sk, hkv, d, generator=g, device=dev).to(dtype)
-    do = torch.randn(B, S, H, d, generator=g, device=dev).to(dtype)
+    does not).  ``d`` is a head dim, or a (dk, dv) pair."""
+    _flash_both_passes(dev, B, S, Sk, H, hkv, d, causal, dtype)
+
+
+def _flash_both_passes(dev, B, S, Sk, H, hkv, d, causal, dtype):
+    dk, dv = d if isinstance(d, tuple) else (d, d)
+    g = torch.Generator(device=dev).manual_seed(
+        S * 7 + Sk + dk + (0 if dv == dk else dv))
+    q = torch.randn(B, S, H, dk, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Sk, hkv, dk, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Sk, hkv, dv, generator=g, device=dev).to(dtype)
+    do = torch.randn(B, S, H, dv, generator=g, device=dev).to(dtype)
     before = (FA.flash_fwd.launches, FA.flash_bwd.launches)
     out, lse = FA.flash_fwd(q, k, v, causal=causal)
     grads = FA.flash_bwd(q, k, v, out, lse, do, causal=causal)
@@ -497,22 +517,33 @@ def test_flash_forward_kernel(dev, B, S, Sk, H, hkv, d, causal, dtype):
 
 
 def test_flash_d160_backward_refused_before_any_launch(dev):
-    """d 160 has a forward only on the card: ``flash_attention`` refuses it
-    before any launch when a gradient will be asked for, ``flash_bwd``
-    refuses the width, and the forward alone runs under no_grad."""
-    q = torch.randn(1, 64, 4, 160, device=dev, dtype=torch.bfloat16,
-                    requires_grad=True)
+    """d 160 trains on the card: ``flash_attention`` with a gradient to
+    come runs one forward and one backward launch, and its gradients
+    match the plain versions' under the bf16 bars; the forward alone
+    still runs under no_grad."""
+    g = torch.Generator(device=dev).manual_seed(160)
+    q, k, v, do = (torch.randn(1, 300, h, 160, generator=g, device=dev
+                               ).to(torch.bfloat16) for h in (8, 2, 2, 8))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    _, lse = FA.flash_fwd(q, k, v)       # the lse the Function saves
     before = (FA.flash_fwd.launches, FA.flash_bwd.launches)
-    with pytest.raises(ValueError, match="flash backward takes"):
-        FA.flash_attention(q, q, q)
-    assert (FA.flash_fwd.launches, FA.flash_bwd.launches) == before
-    x = q.detach()
-    lse = torch.zeros(1, 4, 64, device=dev)
-    with pytest.raises(ValueError, match="head dim 160"):
-        FA.flash_bwd(x, x, x, x, lse, x)
+    out = FA.flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert (FA.flash_fwd.launches, FA.flash_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_out, _ = R.flash_fwd(q, k, v)
+    want = R.flash_bwd(q, k, v, out.detach(), lse, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (out,) + grads,
+                          (want_out,) + tuple(want)):
+        a, b = a.detach().double(), b.double()
+        diff = (a - b).abs()
+        rms = b.square().mean().sqrt()
+        assert (diff <= TOL[torch.bfloat16] * (rms + b.abs())).all(), name
+        assert diff.norm() <= 1e-2 * b.norm(), name
     with torch.no_grad():
-        out = FA.flash_attention(q, q, q)
-    assert out.shape == q.shape and FA.flash_fwd.launches == before[0] + 1
+        out = FA.flash_attention(*leaves)
+    assert out.shape == q.shape and FA.flash_fwd.launches == before[0] + 2
 
 
 def test_flash_function_matches_plain_autograd(dev):
@@ -533,9 +564,20 @@ def test_flash_function_matches_plain_autograd(dev):
 
 
 def test_flash_refuses_what_it_cannot_take(dev):
+    """A head dim outside the kernels' pairs, and the reduced deepseek's
+    (dk, dv) = (48, 32), are refused before any launch in both passes."""
+    before = (FA.flash_fwd.launches, FA.flash_bwd.launches)
     q = torch.zeros(1, 16, 4, 96, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_fwd(q, q, q)
+    q = torch.zeros(1, 16, 4, 48, device=dev, dtype=torch.bfloat16)
+    v = torch.zeros(1, 16, 4, 32, device=dev, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 4, 16, device=dev)
+    with pytest.raises(ValueError, match=r"\(dk 48, dv 32\)"):
+        FA.flash_fwd(q, q, v)
+    with pytest.raises(ValueError, match=r"\(dk 48, dv 32\)"):
+        FA.flash_bwd(q, q, v, v, lse, v)
+    assert (FA.flash_fwd.launches, FA.flash_bwd.launches) == before
     q = torch.zeros(1, 16, 4, 64, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         FA.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)

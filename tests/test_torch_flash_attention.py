@@ -169,7 +169,7 @@ def _emulate_bf16_kernels(q, k, v, do, causal):
     rounded to bf16.  Delta reads the rounded out, as on the card."""
     B, S, H, d = q.shape
     G = H // k.shape[2]
-    scale = d ** -0.5
+    scale = d ** -0.5              # q and k are d wide, v may be narrower
     qf, dof = q.float(), do.float()
     kx, vx = (t.float().repeat_interleave(G, dim=2) for t in (k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kx) * scale
@@ -189,7 +189,8 @@ def _emulate_bf16_kernels(q, k, v, do, causal):
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kx)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dv = torch.einsum("bhqk,bqhd->bkhd", _bf16_split(P), dof)
-    dk, dv = (t.reshape(B, -1, H // G, G, d).sum(3) for t in (dk, dv))
+    dk, dv = (t.reshape(B, -1, H // G, G, t.shape[-1]).sum(3)
+              for t in (dk, dv))
     return (out, lse) + tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
 
 
@@ -203,9 +204,10 @@ def _bar_ratio(a, b):
             (diff.norm() / b.norm()).item())
 
 
-def _emulated_vs_plain(S, H, hkv, d, causal, seed):
+def _emulated_vs_plain(S, H, hkv, d, causal, seed, dv=None):
+    dv = dv or d
     q, k, v, do = (as_torch(x, "bfloat16") for x in draws(
-        seed, (1, S, H, d), (1, S, hkv, d), (1, S, hkv, d), (1, S, H, d)))
+        seed, (1, S, H, d), (1, S, hkv, d), (1, S, hkv, dv), (1, S, H, dv)))
     got = _emulate_bf16_kernels(q, k, v, do, causal)
     out, lse = TR.flash_fwd(q, k, v, causal=causal)
     want = (out, lse) + TR.flash_bwd(q, k, v, got[0], got[1], do,

@@ -247,24 +247,30 @@ def test_hubert_trains_through_the_driver(tmp_path):
 
 
 def test_card_training_refuses_d160():
-    """pixtral's head dim 160 has a flash forward on the card and no
-    backward yet: the driver refuses before it builds anything."""
+    """pixtral's head dim 160 now has a flash backward on the card: the
+    trainer's card check passes it, and the run goes on to ask for the
+    card (here, where torch sees none, ``resolve_device`` refuses)."""
     from repro_torch.launch import train
 
-    args = train.parse_args(["--arch", "pixtral-12b", "--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="Queue 2 A1"):
+    args = train.parse_args(["--arch", "pixtral-12b", "--device", "cuda",
+                             "--layers", "1"])
+    TM.check_card_training(TC.get_config("pixtral-12b"))
+    with pytest.raises(RuntimeError, match="torch sees no CUDA device"):
         train.run(args)
 
 
 @pytest.mark.parametrize("arch,reduce,refusal", [
-    ("pixtral-12b", False, "flash backward at head dim 160"),
+    ("pixtral-12b", False, None),
     ("pixtral-12b", True, None), ("hubert-xlarge", False, None),
-    ("llama3.2-3b", False, None),
+    ("llama3.2-3b", False, None), ("deepseek-v2-236b", False, None),
+    ("deepseek-v2-236b", True, r"\(dk, dv\) \(48, 32\)"),
     ("jamba-v0.1-52b", True, "gradient of the SSD")])
 def test_check_card_training(arch, reduce, refusal):
     """The model layer says which configs a backward on the card cannot
-    take yet: d 160's flash backward and the SSD gradient; the reduced
-    pixtral (d 32), hubert (d 80) and llama (d 128) train there."""
+    take: the SSD gradient, and a (dk, dv) pair the flash kernels do not
+    take (the reduced deepseek's 48 / 32); pixtral (d 160 and, reduced,
+    32), hubert (d 80), llama (d 128) and deepseek (192 / 128) train
+    there."""
     cfg = TC.get_config(arch)
     cfg = TC.reduced(cfg) if reduce else cfg
     if refusal is None:
@@ -359,17 +365,19 @@ def test_pixtral_report_field_identical(pixtral):
 
 
 def test_registry_holds_the_frontends_and_refuses_mla():
-    assert {"hubert-xlarge", "pixtral-12b"} <= set(TC.ARCH_IDS)
-    assert TC.ARCH_IDS == [a for a in JR.ARCH_IDS if a in TC.ARCH_IDS]
-    with pytest.raises(NotImplementedError, match="MLA.*item 7c.3"):
-        TC.get_config("deepseek-v2-236b")
-    with pytest.raises(NotImplementedError, match="MLA.*item 7c.3"):
-        TC.reduced(get_config("deepseek-v2-236b"))
+    """Every architecture of the reference is registered, in its order:
+    the frontends and MLA's deepseek-v2-236b, whose reduced config and
+    schema the port takes, and whose latent cache the engine serves."""
+    assert {"hubert-xlarge", "pixtral-12b",
+            "deepseek-v2-236b"} <= set(TC.ARCH_IDS)
+    assert TC.ARCH_IDS == JR.ARCH_IDS
+    small = TC.reduced(TC.get_config("deepseek-v2-236b"))
+    assert dataclasses.asdict(small) == dataclasses.asdict(
+        reduced(get_config("deepseek-v2-236b")))
     from repro_torch.configs.base import MLAConfig
 
     mla = dataclasses.replace(TC.reduced(TC.get_config("llama3.2-3b")),
                               mla=MLAConfig())
-    with pytest.raises(NotImplementedError, match="item 7c.3"):
-        TM.param_leaves(mla)
-    with pytest.raises(NotImplementedError, match="item 7c.3"):
-        check_servable(mla)
+    assert set(TM.param_leaves(mla)["groups"][0]["mixer"]) == {
+        "w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_uk", "w_uv", "wo"}
+    check_servable(mla)

@@ -43,10 +43,10 @@ def close(got, want, tol):
 
 
 def test_the_wrappers_take_d160():
-    """d 160 is a width of the decode kernel and of the flash forward;
-    the flash backward does not take it yet (ROADMAP Queue 2 A1)."""
+    """d 160 is a width of the decode kernel and of the flash kernels,
+    forward and backward (one set of (dk, dv) pairs for both passes)."""
     assert D in TD.HEAD_DIMS
-    assert D in FA.FWD_HEAD_DIMS and D not in FA.BWD_HEAD_DIMS
+    assert (D, D) in FA.HEAD_DIMS
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -187,9 +187,10 @@ def test_engine_serves_reduced_jamba():
 
 @pytest.mark.parametrize("change", ["mla", "vision", "audio_encoder"])
 def test_engine_refuses_mla_and_frontends(change):
-    """MLA waits for ROADMAP item 7c.3; an encoder-only model has no
-    decode step (the reference's reason); a vision model is served, as
-    the reference's engine serves it (it decodes text tokens)."""
+    """An MLA model is served (its latent cache by its slot axis); an
+    encoder-only model has no decode step (the reference's reason); a
+    vision model is served, as the reference's engine serves it (it
+    decodes text tokens)."""
     from repro_torch.configs.base import MLAConfig
     from repro_torch.serving.kvcache import SlotCaches, check_servable
 
@@ -199,12 +200,14 @@ def test_engine_refuses_mla_and_frontends(change):
         "vision": dict(frontend="vision", n_frontend_tokens=16),
         "audio_encoder": dict(frontend="audio", encoder_only=True),
     }[change])
-    if change == "vision":
+    if change in ("vision", "mla"):
         check_servable(cfg)
-        assert SlotCaches(cfg, 2, 32, "cpu").n_free == 2
+        caches = SlotCaches(cfg, 2, 32, "cpu")
+        assert caches.n_free == 2
+        assert set(caches.state[0]) == (
+            {"ckv", "krope"} if change == "mla" else {"k", "v"})
         return
-    err, match = {"mla": (NotImplementedError, "item 7c.3"),
-                  "audio_encoder": (ValueError, "encoder-only")}[change]
+    err, match = ValueError, "encoder-only"
     with pytest.raises(err, match=match):
         check_servable(cfg)
     with pytest.raises(err, match=match):

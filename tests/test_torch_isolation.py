@@ -64,3 +64,21 @@ def test_no_jax_or_reference_imports(path):
     bad = [(line, mod) for line, mod in imported_modules(path)
            if mod.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_config_module_is_checked():
+    """Each config module of the port (deepseek-v2-236b's, the last one
+    ported, among them) is one of the files the import check reads, and
+    the blocked-import run imports it."""
+    configs = {p.name for p in (PORT / "configs").glob("*.py")}
+    assert "deepseek_v2_236b.py" in configs
+    assert configs <= {p.name for p in port_files()
+                       if p.parent.name == "configs"}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = BLOCKER.replace(
+        "print(len(names))",
+        "print('repro_torch.configs.deepseek_v2_236b' in names)")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True"
