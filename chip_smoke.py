@@ -188,6 +188,18 @@ Phases, one JSON line each on standard output:
                  the full-width deepseek-v2-236b cut to 4 layers over one
                  4096-token sequence: 4 flash launches a call, finite
                  logits, the cross-entropy where random weights put it.
+  dryrun         each full-width run above that measures a peak
+                 (train_full, hubert's and pixtral's training, the Jamba
+                 prefill, pixtral's and deepseek's forwards) against
+                 ``repro_torch.launch.dryrun`` of the same step at the
+                 same config, depth, batch and seq, traced on meta
+                 tensors in a CPU worker while the card works: the
+                 dry run's kernel calls equal the card's launches a
+                 step, and its estimated peak lies within 10 % of the
+                 measured one (``max_memory_allocated`` less what was
+                 allocated when the run began); each run's estimated and
+                 measured GB, counted TFLOP, the roofline's step bound
+                 and the measured p50.
   profile        (only with ``--phases profile``) ``torch.profiler`` over
                  30 full-width engine steps: device busy and idle time, and
                  the kernels that take it.
@@ -197,9 +209,11 @@ Phases, one JSON line each on standard output:
                  prefills of the prefill_full configuration.
 
 The CPU engine runs that engine_parity, engine_full, serve_full,
-families_full and control_full compare with (``cpu_reference``) run in
-worker processes started with the script (``CpuRefs``), while the card
-works; the script stops them before it exits.
+families_full and control_full compare with, and the dry runs
+(``cpu_reference``), run in worker processes started with the script
+(``CpuRefs``), while the card works; the script stops them before it
+exits.  Every ``bound_ms`` of the kernel table comes from the kernels'
+own ``cost`` functions.
 
 Then the kernel table (one JSON object), the card's ``name, power.limit``
 as nvidia-smi prints them, and the result line.  Any failed check raises,
@@ -230,7 +244,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 sys.path.insert(0, str(SRC))
 try:
-    from repro_torch.kernels.timing import bound_ms, card_line, cuda_ms
+    from repro_torch.kernels.timing import card_line, cost_bound_ms, cuda_ms
 except ModuleNotFoundError:
     sys.exit("chip_smoke: the port's sources (src/repro_torch) are not "
              "beside this script; run it from the root of a checkout")
@@ -865,7 +879,6 @@ def check_flash(dev, seed: int) -> dict:
             family_times[name] = _flash_times(FA, q, k, v, do, **shape)
     out["family_times"] = family_times
     # the training shape: times against the bound and the library call
-    B, S, H, hkv, d = (FLASH_TRAIN[k] for k in ("B", "S", "H", "hkv", "d"))
     q, k, v, do = _flash_inputs(g, dev, torch.bfloat16, **FLASH_TRAIN)
     o, lse = FA.flash_fwd(q, k, v, causal=True)
     fwd_ms = cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=True), 10, 2)
@@ -896,22 +909,15 @@ def check_flash(dev, seed: int) -> dict:
                                        enable_gqa=True)
     lib_b = cuda_ms(lambda: torch.autograd.grad(y, (lq, lk, lv), dos,
                                                 retain_graph=True), 5, 1)
-    # causal work: half of the S x S scores; forward 2 products, the
-    # backward's necessary 5 (s, dp, dq, dk, dv) = 2.5x the forward
-    fwd_ops = 4 * B * H * S * S * d / 2
-    qkv_bytes = 2 * (B * S * H * d + 2 * B * S * hkv * d)
-    fwd_bytes = qkv_bytes + 2 * B * S * H * d + 4 * B * H * S
-    bwd_bytes = (qkv_bytes + 2 * 2 * B * S * H * d + 4 * B * H * S
-                 + qkv_bytes)
+    # the work and the bounds: the kernels' own ``cost``
+    fwd = FA.cost(q, k, v, causal=True)
+    bwd = FA.cost(q, k, v, causal=True, backward=True)
     out["timing"] = {
-        "flash_fwd": (fwd_ms, fwd_plain,
-                      bound_ms(fwd_bytes, fwd_ops, torch.bfloat16), lib_f),
-        "flash_bwd": (bwd_ms, bwd_plain,
-                      bound_ms(bwd_bytes, 2.5 * fwd_ops, torch.bfloat16),
-                      lib_b)}
+        "flash_fwd": (fwd_ms, fwd_plain, cost_bound_ms(fwd), lib_f),
+        "flash_bwd": (bwd_ms, bwd_plain, cost_bound_ms(bwd), lib_b)}
     out["library_fwd_bwd_ms"] = lib_fb
-    out["fwd_tflops"] = fwd_ops / fwd_ms / 1e9
-    out["bwd_tflops"] = 2.5 * fwd_ops / bwd_ms / 1e9
+    out["fwd_tflops"] = fwd["ops"] / fwd_ms / 1e9
+    out["bwd_tflops"] = bwd["ops"] / bwd_ms / 1e9
     out["library_max_abs_err"] = lib_err.item()
     return out
 
@@ -926,35 +932,19 @@ FLASH_GROUPS = {
 }
 
 
-def flash_cost(q, k, v, causal) -> dict:
-    """The bytes and operations of a flash call at these inputs' shapes
-    (bf16): causal, half the S x S pairs; the forward's products 2 (dk +
-    dv) flops a pair and head, the backward's necessary five (s, dp, dq,
-    dk, dv) 2 (3 dk + 2 dv); each input read and output written once."""
-    B, S, H, dk = q.shape
-    Sk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
-    pairs = B * H * S * Sk / (2 if causal else 1)
-    qkv = 2 * (B * S * H * dk + B * Sk * hkv * (dk + dv))
-    return {"fwd_bytes": qkv + 2 * B * S * H * dv + 4 * B * H * S,
-            "fwd_ops": 2 * pairs * (dk + dv),
-            "bwd_bytes": 2 * qkv + 2 * 2 * B * S * H * dv + 4 * B * H * S,
-            "bwd_ops": 2 * pairs * (3 * dk + 2 * dv)}
-
-
 def _flash_times(FA, q, k, v, do, causal=True, backward=True, **_) -> dict:
     """The bf16 flash forward's (and backward's) issue pace at one shape,
-    beside their bounds (``flash_cost``)."""
+    beside their bounds (the kernels' ``cost``)."""
     o, lse = FA.flash_fwd(q, k, v, causal=causal)
-    c = flash_cost(q, k, v, causal)
     out = {"fwd_ms": cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=causal),
                              5, 1),
-           "fwd_bound_ms": bound_ms(c["fwd_bytes"], c["fwd_ops"],
-                                    torch.bfloat16)[0]}
+           "fwd_bound_ms": cost_bound_ms(FA.cost(q, k, v,
+                                                 causal=causal))[0]}
     if backward:
         out.update(bwd_ms=cuda_ms(lambda: FA.flash_bwd(
             q, k, v, o, lse, do, causal=causal), 3, 1),
-            bwd_bound_ms=bound_ms(c["bwd_bytes"], c["bwd_ops"],
-                                  torch.bfloat16)[0])
+            bwd_bound_ms=cost_bound_ms(FA.cost(q, k, v, causal=causal,
+                                               backward=True))[0])
     return out
 
 
@@ -1005,7 +995,7 @@ def check_flash_frontends(dev, seed: int) -> dict:
                                                         causal=True), 3, 1)
             t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, is_causal=True, enable_gqa=True), 10, 2)
-            t["tflops"] = (4 * shape["S"] ** 2 * shape["H"] * shape["d"] / 2
+            t["tflops"] = (FA.cost(q, k, v, causal=True)["ops"]
                            / t["fwd_ms"] / 1e9)
             times["pixtral_d160"] = t
         del q, k, v, got, lse, want, want_lse
@@ -1088,8 +1078,8 @@ def check_flash_mla(dev, seed: int) -> dict:
     full; the backward at pixtral's d 160 (S 4096, H 32 / Hkv 8); each
     against its plain version on the same inputs under the kernels
     phase's bars (``flash_close``).  The two full shapes timed by CUDA
-    events beside their bounds (``flash_cost``), their plain versions and
-    the library (``library_attention``)."""
+    events beside their bounds (the kernels' ``cost``), their plain
+    versions and the library (``library_attention``)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref as R
 
@@ -1119,9 +1109,11 @@ def check_flash_mla(dev, seed: int) -> dict:
                 lambda: R.flash_fwd(q, k, v, causal=causal), 2, 1)
             t["bwd_plain_ms"] = cuda_ms(lambda: R.flash_bwd(
                 q, k, v, o, lse, do, causal=causal), 2, 1)
-            c = flash_cost(q, k, v, causal)
-            t["fwd_tflops"] = c["fwd_ops"] / t["fwd_ms"] / 1e9
-            t["bwd_tflops"] = c["bwd_ops"] / t["bwd_ms"] / 1e9
+            t["fwd_tflops"] = (FA.cost(q, k, v, causal=causal)["ops"]
+                               / t["fwd_ms"] / 1e9)
+            t["bwd_tflops"] = (FA.cost(q, k, v, causal=causal,
+                                       backward=True)["ops"]
+                               / t["bwd_ms"] / 1e9)
             t["library"] = library_attention(q, k, v, do, causal)
             times[name.split("_train")[0]] = t
             del o, lse
@@ -1275,23 +1267,15 @@ def check_ssd(dev, seed: int) -> dict:
             raise AssertionError(f"ssd {name}: {errs}")
         out[name] = errs
     x, dt, A, B, C, D = _ssd_inputs(g, dev, torch.bfloat16, **SSD_PATH)
-    b, s, nh, dh, N, c = (SSD_PATH[k] for k in
-                          ("b", "s", "nh", "dh", "N", "chunk"))
+    c = SSD_PATH["chunk"]
 
     def call():
         return MS.ssd_scan(x, dt, A, B, C, D, chunk=c)
 
     ms = cuda_ms(call, 10, 2)
     plain = cuda_ms(lambda: MS.ssd_plain(x, dt, A, B, C, D, chunk=c), 3, 1)
-    # bytes: x and y in bf16, dt and dt*A in f32, B and C in bf16, D, the
-    # f32 h_final; operations: the products the Pallas kernel does per
-    # (chunk, head), dense over the chunk: C B^T, M x, C h^T, the state
-    n_bytes = (2 * 2 * b * s * nh * dh + 2 * 4 * b * s * nh
-               + 2 * 2 * b * s * N + 4 * nh + 4 * b * nh * dh * N)
-    n_ops = (s // c) * b * nh * (2 * c * c * N + 2 * c * c * dh
-                                 + 2 * 2 * c * N * dh)
-    out["timing"] = (ms, plain, bound_ms(n_bytes, n_ops, torch.bfloat16),
-                     None)
+    bound = cost_bound_ms(MS.cost(x, dt, A, B, C, D, chunk=c))
+    out["timing"] = (ms, plain, bound, None)
     # the bf16 call's three kernels, device time a call (profiler)
     out["kernel_ms"] = kernel_ms(call)
     return out
@@ -1489,7 +1473,8 @@ def cpu_reference(key: str, seed: int) -> dict:
     sessions on the device table and on the 2-shard sharded one),
     ``serve`` (serve_full's sessions, also control_full's device run),
     ``async`` and ``poisoned`` (control_full's daemon runs) and
-    ``family:<arch>`` (families_full's); for ``parity:<arch>:<mode>``,
+    ``family:<arch>`` (families_full's); ``dryrun:<run>``, the dry run
+    of a ``DRYRUN_RUNS`` run (``dry_run``); for ``parity:<arch>:<mode>``,
     engine_parity's CPU run of the reduced ``arch`` in a
     ``PARITY_MODES`` mode (``parity_run``: report, token streams,
     retuner actions)."""
@@ -1500,6 +1485,8 @@ def cpu_reference(key: str, seed: int) -> dict:
     from repro_torch.serving import engine as E
     from repro_torch.serving import session as S
 
+    if key.startswith("dryrun:"):
+        return dry_run(key.split(":", 1)[1])
     with contextlib.redirect_stdout(io.StringIO()):
         if key.startswith("parity:"):
             _, arch, mode = key.split(":")
@@ -1558,6 +1545,9 @@ class CpuRefs:
                              ["serve", "async", "poisoned", "sharded"])):
             if phase in phases:
                 keys += [k for k in want if k not in keys]
+        if "dryrun" in phases:
+            keys += [f"dryrun:{n}" for n, (p, *_) in DRYRUN_RUNS.items()
+                     if p in phases]
         self.pool = multiprocessing.get_context("spawn").Pool(
             min(self.WORKERS, len(keys)), initializer=_cpu_worker) \
             if keys else None
@@ -1884,6 +1874,7 @@ def train_full(dev, seed: int) -> dict:
     args = train.parse_args(TRAIN_FULL + ["--seed", str(seed)])
     torch.cuda.synchronize()
     reset_launch_counts()
+    base = torch.cuda.memory_allocated(dev)
     report = train.run(args)
     counts = launch_counts()
     losses = report["losses"]
@@ -1907,7 +1898,8 @@ def train_full(dev, seed: int) -> dict:
     return {"steps": args.steps, "timed_steps": len(timed),
             "step_s": report["step_s"], "step_s_p50": p50,
             "tokens_per_s": report["tokens_per_step"] / p50,
-            "peak_memory_gb": report["peak_memory_gb"], "losses": losses,
+            "peak_memory_gb": report["peak_memory_gb"],
+            "allocated_at_start_gb": base / 1e9, "losses": losses,
             "first_loss_expected": expect,
             "ln_padded_vocab": float(np.log(cfg.padded_vocab)),
             "launches": got}
@@ -2007,6 +1999,7 @@ def prefill_full(dev, seed: int) -> dict:
     full = get_config(JAMBA)
     cfg = dataclasses.replace(full, n_layers=PREFILL_LAYERS)
     seq = SHAPES["prefill_32k"].seq_len
+    base = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                            device=dev)
@@ -2088,7 +2081,7 @@ def prefill_full(dev, seed: int) -> dict:
     qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, is_causal=True, enable_gqa=True), 5, 2)
-    fwd_ops = 4 * seq * seq * cfg.n_heads * hd / 2
+    fwd_ops = FA.cost(q, k, v, causal=True)["ops"]
     p50 = statistics.median(prefill_s)
     return {"config": cfg.name, "layers": cfg.n_layers, "seq": seq,
             "batch": 1, "params": n_params, "init_s": init_s,
@@ -2100,6 +2093,7 @@ def prefill_full(dev, seed: int) -> dict:
             "prefill_s": prefill_s, "prefill_s_p50": p50,
             "prefill_s_p95": float(np.percentile(prefill_s, 95)),
             "tokens_per_s": seq / p50, "peak_memory_gb": peak_gb,
+            "allocated_at_start_gb": base / 1e9,
             "launches_per_prefill": expect,
             "moe_dropped_per_layer": drops,
             "moe_capacity": MoE.capacity(cfg, seq,
@@ -2239,6 +2233,7 @@ def train_run_full(argv: list, seed: int) -> dict:
         cfg = dc.replace(cfg, n_layers=args.layers)
     torch.cuda.synchronize()
     reset_launch_counts()
+    base = torch.cuda.memory_allocated()
     with contextlib.redirect_stdout(io.StringIO()):
         report = train.run(args)
     counts = launch_counts()
@@ -2261,7 +2256,8 @@ def train_run_full(argv: list, seed: int) -> dict:
             "params": cfg.param_count(), "timed_steps": len(timed),
             "step_s": report["step_s"], "step_s_p50": p50,
             "tokens_per_s": report["tokens_per_step"] / p50,
-            "peak_memory_gb": report["peak_memory_gb"], "losses": losses,
+            "peak_memory_gb": report["peak_memory_gb"],
+            "allocated_at_start_gb": base / 1e9, "losses": losses,
             "first_loss_expected": expect, "launches": counts}
 
 
@@ -2281,6 +2277,7 @@ def pixtral_forward_full(dev, seed: int) -> dict:
 
     cfg = get_config("pixtral-12b")
     seq = SHAPES["train_4k"].seq_len
+    base = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                            device=dev)
@@ -2325,8 +2322,9 @@ def pixtral_forward_full(dev, seed: int) -> dict:
     return {"layers": cfg.n_layers, "seq": seq, "patches": n,
             "params": n_params, "init_s": init_s, "forward_s": forward_s,
             "forward_s_p50": p50, "tokens_per_s": seq / p50,
-            "peak_memory_gb": peak_gb, "cross_entropy": ce,
-            "cross_entropy_expected": expect, "launches": counts}
+            "peak_memory_gb": peak_gb, "allocated_at_start_gb": base / 1e9,
+            "cross_entropy": ce, "cross_entropy_expected": expect,
+            "launches": counts}
 
 
 def frontends_full(dev, seed: int) -> dict:
@@ -2427,6 +2425,7 @@ def deepseek_forward_full(dev, seed: int) -> dict:
 
     cfg = dataclasses.replace(get_config(DEEPSEEK), n_layers=DEEPSEEK_LAYERS)
     seq = 4096
+    base = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                            device=dev)
@@ -2471,6 +2470,7 @@ def deepseek_forward_full(dev, seed: int) -> dict:
             "seq": seq, "params": n_params, "init_s": init_s,
             "forward_s": forward_s, "forward_s_p50": p50,
             "tokens_per_s": seq / p50, "peak_memory_gb": peak_gb,
+            "allocated_at_start_gb": base / 1e9,
             "cross_entropy": ce, "cross_entropy_expected": expect,
             "aux": float(aux), "launches": counts,
             "cut": FAMILIES_FULL[DEEPSEEK][1]}
@@ -2484,6 +2484,93 @@ def mla_full(dev, seed: int) -> dict:
            "deepseek_forward_full": deepseek_forward_full(dev, seed)}
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# the dry run of each full-width run that measures a peak: the phase and
+# its result's key, and the cell the dry run traces at that config,
+# depth, batch and seq (``launch/dryrun.py::run_cell``)
+DRYRUN_RUNS = {
+    "train_full": ("train_full", None, "llama3.2-3b", "train_4k",
+                   dict(batch=1, seq=4096)),
+    "hubert_train_full": ("frontends_full", "hubert_train_full",
+                          "hubert-xlarge", "train_4k",
+                          dict(batch=1, seq=4096)),
+    "pixtral_train_full": ("frontends_full", "pixtral_train_full",
+                           "pixtral-12b", "train_4k",
+                           dict(layers=PIXTRAL_LAYERS, batch=1, seq=4096)),
+    "prefill_full": ("prefill_full", None, JAMBA, "prefill_32k",
+                     dict(layers=PREFILL_LAYERS, batch=1)),
+    "pixtral_forward_full": ("frontends_full", "pixtral_forward_full",
+                             "pixtral-12b", "prefill_32k",
+                             dict(batch=1, seq=4096)),
+    "deepseek_forward_full": ("mla_full", "deepseek_forward_full", DEEPSEEK,
+                              "prefill_32k",
+                              dict(layers=DEEPSEEK_LAYERS, batch=1,
+                                   seq=4096)),
+}
+DRYRUN_TOL = 0.10          # estimated peak against measured, relative
+
+
+def dry_run(name: str) -> dict:
+    """The dry run of ``DRYRUN_RUNS[name]`` on meta tensors (a
+    ``CpuRefs`` worker runs it, no card)."""
+    from repro_torch.launch import dryrun
+
+    _, _, arch, shape, kw = DRYRUN_RUNS[name]
+    return dryrun.run_cell(arch, shape, **kw)
+
+
+def _step_launches(name: str, res: dict) -> dict:
+    """A measured run's kernel launches a step (train) or a call."""
+    if "launches_per_prefill" in res:
+        return res["launches_per_prefill"]
+    steps = len(res["step_s"]) if "step_s" in res else 1
+    return {k: n // steps for k, n in res["launches"].items() if n}
+
+
+def dryrun_phase(results: dict, refs: CpuRefs) -> dict:
+    """Each measured run of ``DRYRUN_RUNS`` that ran (``results``: name
+    -> its phase's result) against its dry run: the same step at the same
+    config, depth, batch and seq, with the same remat and microbatches
+    (train), the same kernel calls a step as the card launched, and an
+    estimated peak within ``DRYRUN_TOL`` of the measured one
+    (``max_memory_allocated`` less what was allocated when the run
+    began).  Each run's estimated and measured GB, counted TFLOP, the
+    roofline's step bound and the measured p50."""
+    out = {}
+    for name, res in results.items():
+        rec = refs.get(f"dryrun:{name}")
+        if "memory" not in rec:
+            raise AssertionError(f"dry run of {name}: {rec}")
+        est = rec["memory"]["per_device_bytes"] / 1e9
+        meas = res["peak_memory_gb"] - res["allocated_at_start_gb"]
+        calls = {k: v["launches"] for k, v in rec["kernels"].items()}
+        p50 = next(res[k] for k in ("step_s_p50", "prefill_s_p50",
+                                    "forward_s_p50") if k in res)
+        out[name] = {
+            "arch": rec["arch"], "shape": rec["shape"],
+            "reduced": rec["reduced"], "estimated_gb": est,
+            "measured_gb": meas, "rel_err": (est - meas) / meas,
+            "at_peak_gb": {k: v / 1e9
+                           for k, v in rec["memory"]["at_peak"].items()},
+            "tflop": rec["costs"]["flops"] / 1e12,
+            "bytes_gb": rec["costs"]["bytes"] / 1e9,
+            "step_time_bound_s": rec["roofline"]["step_time_bound_s"],
+            "dominant": rec["roofline"]["dominant"],
+            "measured_p50_s": p50, "kernel_calls": calls,
+            "t_trace_s": rec["t_trace_s"]}
+        if rec["shape"] == "train_4k" and (
+                rec["perf"]["remat"], rec["perf"]["microbatches"]) != (
+                "dots", 1):
+            raise AssertionError(f"dry run of {name} ran {rec['perf']}, "
+                                 "the card's run remat dots, 1 microbatch")
+        if calls != _step_launches(name, res):
+            raise AssertionError(f"dry run of {name} calls {calls}, the "
+                                 f"card launched {_step_launches(name, res)}")
+        if not abs(est - meas) <= DRYRUN_TOL * meas:
+            raise AssertionError(f"dry run of {name}: estimated peak "
+                                 f"{est:.3f} GB, measured {meas:.3f} GB")
     return out
 
 
@@ -3116,19 +3203,20 @@ def main() -> None:
                     default="kernels,engine_parity,engine_full,conformance,"
                             "replay,serve_full,families_full,control_full,"
                             "train_parity,train_full,prefill_parity,"
-                            "prefill_full,frontends_full,mla_full",
+                            "prefill_full,frontends_full,mla_full,dryrun",
                     help="comma-separated phases to run, of kernels, "
                          "engine_parity, engine_full, conformance, replay, "
                          "serve_full, families_full, control_full, "
                          "train_parity, train_full, prefill_parity, "
-                         "prefill_full, frontends_full, mla_full, and "
+                         "prefill_full, frontends_full, mla_full, "
+                         "dryrun (after the phases it compares), and "
                          "profile, "
                          "train_profile and prefill_profile (not in the "
                          "default run); the result line is printed only "
                          "when kernels, engine_full, conformance, "
                          "serve_full, families_full, control_full, "
-                         "train_full, prefill_full, frontends_full and "
-                         "mla_full ran")
+                         "train_full, prefill_full, frontends_full, "
+                         "mla_full and dryrun ran")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -3306,6 +3394,18 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
     if "mla_full" in phases:
         mla_run = mla_full(dev, seed)
         emit({"phase": "mla_full", "card": card, **mla_run})
+    dry = None
+    if "dryrun" in phases:
+        by_phase = {"train_full": train, "prefill_full": prefill,
+                    "frontends_full": fronts, "mla_full": mla_run}
+        measured = {}
+        for name, (phase, key, *_) in DRYRUN_RUNS.items():
+            res = by_phase[phase]
+            if res is not None:
+                measured[name] = res if key is None else res[key]
+        dry = dryrun_phase(measured, refs)
+        emit({"phase": "dryrun", "card": card, "tolerance": DRYRUN_TOL,
+              "runs": dry})
     if "profile" in phases:
         emit({"phase": "profile", "card": card,
               **profile_step(dev, seed)})
@@ -3317,7 +3417,7 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
               **prefill_profile(dev, seed)})
     if rows is None or full is None or train is None or prefill is None \
             or conf is None or served is None or ctrl is None or fams is None \
-            or fronts is None or mla_run is None:
+            or fronts is None or mla_run is None or dry is None:
         return
     launches = dict(full["launches"], **train["launches"],
                     ssd_scan=prefill["launches_per_prefill"]["ssd_scan"])

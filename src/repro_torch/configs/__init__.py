@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      cell_applicability)
 from repro_torch.configs.deepseek_v2_236b import CONFIG as _DEEPSEEK_V2_236B
 from repro_torch.configs.hubert_xlarge import CONFIG as _HUBERT_XLARGE
 from repro_torch.configs.internlm2_20b import CONFIG as _INTERNLM2_20B
@@ -75,4 +76,4 @@ def reduced(cfg: ModelConfig, seed_vocab: int = 512) -> ModelConfig:
 
 
 __all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "ARCH_IDS", "get_config",
-           "reduced"]
+           "reduced", "cell_applicability"]

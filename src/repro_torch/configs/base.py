@@ -2,8 +2,10 @@
 
 A copy of the JAX package's dataclasses, so the port never imports the
 reference, with the assigned input shapes (``SHAPES``; the trainer takes
-its sequence length from ``train_4k``).  The cell-applicability rules of
-the reference (a TPU dry-run concern) are not carried over.
+its sequence length from ``train_4k``) and the rule of which (arch x
+shape) cells apply (``cell_applicability``, identical to the reference's:
+encoder-only archs have no decode step; ``long_500k`` needs sub-quadratic
+context handling), which the dry run (``launch/dryrun.py``) follows.
 """
 from __future__ import annotations
 
@@ -207,3 +209,13 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
 }
+
+
+def cell_applicability(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(applicable, reason-if-not), the reference's rule
+    (``repro/configs/base.py:215-221``)."""
+    if cfg.encoder_only and shape.kind == "decode":
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "pure full-attention arch; 500k decode needs sub-quadratic context (see DESIGN.md)"
+    return True, ""

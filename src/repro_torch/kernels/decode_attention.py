@@ -13,12 +13,14 @@ it (bytes: ~2*G flops per cached byte) and how the design answers it.
 
 ``decode_attention_plain`` and ``paged_decode_attention_plain`` are the
 plain torch versions: the wrappers take them only for CPU tensors; CUDA
-tensors launch the kernel or raise.  All mask positions
-``>= lengths[b]`` (so a ragged ``S_max`` needs no block multiple) and
-give 0 for a slot with no live position, as the Pallas kernels do.  The
-paged forms never read the table entry of a page that starts at or past
-``lengths[b]`` (such entries may hold -1).  The paged decode lies on no
-path of the engine, which decodes from dense slot caches.
+tensors launch the kernel or raise; tensors that hold no data take
+``kernels/fake.py``'s branch, with the work ``cost`` counts.  All mask
+positions ``>= lengths[b]`` (so a ragged ``S_max`` needs no block
+multiple) and give 0 for a slot with no live position, as the Pallas
+kernels do.  The paged forms never read the table entry of a page that
+starts at or past ``lengths[b]`` (such entries may hold -1).  The paged
+decode lies on no path of the engine, which decodes from dense slot
+caches.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, fake, ref
 
 SPLIT = 256          # keys per CTA of the f32 kernel
 MAX_CLUSTER = 8      # CTAs per (kv head, slot) of the bf16 kernel, at most
@@ -63,7 +65,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
                      scale: Optional[float] = None):
     """Dense-cache single-token decode: the CUDA kernel on CUDA tensors,
     the plain version on CPU tensors."""
-    if not q.is_cuda:
+    if not q.is_cuda and fake.holds_data(q):
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       scale=scale)
     return _launch(q, k_cache, v_cache, lengths, scale)
@@ -85,7 +87,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            scale: Optional[float] = None):
     """Paged-pool single-token decode: the CUDA kernel on CUDA tensors,
     the plain version on CPU tensors."""
-    if not q.is_cuda:
+    if not q.is_cuda and fake.holds_data(q):
         return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
                                             lengths, scale=scale)
     return _launch_paged(q, k_pages, v_pages, page_table, lengths, scale)
@@ -94,7 +96,31 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
 paged_decode_attention.launches = 0
 
 
-def _check_common(q, k, v, lengths, H, hkv):
+def cost(q, k, v, lengths=None, page_table=None, page: int = 0) -> dict:
+    """The work of one call, ``{ops, bytes, dtype}``
+    (``timing.cost_bound_ms`` turns it into a bound): each live K and V
+    row read once, q read and out written, the int32 lengths, and (paged,
+    ``page_table`` given, ``page`` tokens a page) each live page's table
+    entry; 2 (dk + dv) flops a live key and query head.  The live keys
+    are ``lengths`` (a sequence of ints) where the caller has them, as
+    the benches do, and the whole cache where it has not, as a dry run's
+    "one new token against a seq_len cache"."""
+    B, H, dk = q.shape
+    hkv, dv = v.shape[2], v.shape[3]
+    if lengths is None:
+        cap = (page_table.shape[1] * page if page_table is not None
+               else v.shape[1])
+        lengths = [cap] * B
+    live = sum(lengths)
+    e = q.element_size()
+    n_bytes = e * (live * hkv * (dk + dv) + B * H * (dk + dv)) + 4 * B
+    if page_table is not None:
+        n_bytes += 4 * sum(-(-n // page) for n in lengths)
+    return {"ops": 2 * live * H * (dk + dv), "bytes": n_bytes,
+            "dtype": q.dtype}
+
+
+def _check_common(q, k, v, lengths, H, hkv, real: bool = True):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"decode attention takes f32 or bf16 q/k/v of one "
                          f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -104,7 +130,8 @@ def _check_common(q, k, v, lengths, H, hkv):
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != q.shape[:1]:
         raise ValueError("lengths must be int32 (B,)")
     for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+        if t.device != q.device or not t.is_contiguous() \
+                or (real and t.data_ptr() % 16):
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
                              f"tensor on {q.device}")
 
@@ -122,14 +149,16 @@ def _launch_paged(q, k_pages, v_pages, page_table, lengths, scale):
         raise ValueError(f"shapes q {tuple(q.shape)} k "
                          f"{tuple(k_pages.shape)} v {tuple(v_pages.shape)} "
                          f"page_table {tuple(page_table.shape)}")
-    _check_common(q, k_pages, v_pages, lengths, H, hkv)
+    real = fake.holds_data(q)
+    _check_common(q, k_pages, v_pages, lengths, H, hkv, real)
     if page_table.dtype != torch.int32 or page_table.device != q.device \
             or not page_table.is_contiguous():
         raise ValueError(f"page_table must be a contiguous int32 tensor on "
                          f"{q.device}")
     out = _run(q, k_pages, v_pages, page_table, lengths, npp * page, page,
                dv, scale, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    if real:
+        paged_decode_attention.launches += 1
     return out
 
 
@@ -142,10 +171,12 @@ def _launch(q, k_cache, v_cache, lengths, scale):
     if tuple(k_cache.shape) != (B, S_max, hkv, dk):
         raise ValueError(f"shapes q {tuple(q.shape)} k "
                          f"{tuple(k_cache.shape)} v {tuple(v_cache.shape)}")
-    _check_common(q, k_cache, v_cache, lengths, H, hkv)
+    real = fake.holds_data(q)
+    _check_common(q, k_cache, v_cache, lengths, H, hkv, real)
     out = _run(q, k_cache, v_cache, None, lengths, S_max, 0, dv, scale,
                "decode_attention")
-    decode_attention.launches += 1
+    if real:
+        decode_attention.launches += 1
     return out
 
 
@@ -154,18 +185,23 @@ def _run(q, k, v, page_table, lengths, cap, page, dv, scale, what,
     """One call of the C entry point over ``cap`` cached positions a slot
     (``page_table`` None: the dense cache).  bf16 is one cluster launch
     of ``splits`` CTAs per (kv head, slot), ``_splits``'s choice unless
-    given, and needs no scratch; f32 gets its chunks' partials."""
+    given, and needs no scratch; f32 gets its chunks' partials.  Tensors
+    that hold no data get the same allocations, and ``cost`` over the
+    whole cache is recorded in place of the launch."""
     B, H, dk = q.shape
     hkv = k.shape[2]
-    if splits is None:
-        splits = _splits(q.device, B * hkv, cap) \
-            if q.dtype == torch.bfloat16 else max(1, -(-cap // SPLIT))
     out = torch.empty(B, H, dv, dtype=q.dtype, device=q.device)
     part_acc = part_ml = None
     if q.dtype == torch.float32:
+        splits = splits or max(1, -(-cap // SPLIT))
         n = B * hkv * splits * (H // hkv)
         part_acc = torch.empty(n * dv, dtype=torch.float32, device=q.device)
         part_ml = torch.empty(n * 2, dtype=torch.float32, device=q.device)
+    if not fake.holds_data(q):
+        fake.record(what, cost(q, k, v, page_table=page_table, page=page))
+        return out
+    if splits is None:
+        splits = _splits(q.device, B * hkv, cap)
     err = _lib().decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if page_table is None else page_table.data_ptr(),

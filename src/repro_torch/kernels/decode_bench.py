@@ -37,6 +37,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build, timing
+from repro_torch.kernels.decode_attention import cost
 
 HEADS = dict(B=8, H=24, hkv=8, d=128)
 PAGE = 16
@@ -54,16 +55,21 @@ SHAPES = {
 
 
 def bound(shape: str, paged: bool, heads: dict = HEADS) -> tuple[float, str]:
-    """``timing.bound_ms`` of a bf16 call at ``shape`` (with ``heads``
-    in place of engine_full's): each live K and V row read once, q read
-    and out written, the lengths and (paged) the live table entries; 4
-    flops a live key, head and channel."""
-    lens = SHAPES[shape]["lengths"]
+    """``timing.cost_bound_ms`` of ``decode_attention.cost`` for a bf16
+    call at ``shape`` (with ``heads`` in place of engine_full's), at the
+    shape's live lengths."""
+    spec = SHAPES[shape]
     B, H, hkv, d = (heads[k] for k in ("B", "H", "hkv", "d"))
-    n_bytes = 2 * sum(lens) * hkv * d * 2 + 2 * B * H * d * 2 + B * 4
+    meta = dict(dtype=torch.bfloat16, device="meta")
+    q = torch.empty(B, H, d, **meta)
     if paged:
-        n_bytes += sum(-(-n // PAGE) for n in lens) * 4
-    return timing.bound_ms(n_bytes, 4 * sum(lens) * H * d, torch.bfloat16)
+        npp = spec["s_max"] // PAGE
+        kv = torch.empty(B * npp, PAGE, hkv, d, **meta)
+        table = torch.empty(B, npp, dtype=torch.int32, device="meta")
+        return timing.cost_bound_ms(cost(q, kv, kv, spec["lengths"], table,
+                                         PAGE))
+    kv = torch.empty(B, spec["s_max"], hkv, d, **meta)
+    return timing.cost_bound_ms(cost(q, kv, kv, spec["lengths"]))
 
 
 def cache_sets(shape: str, layout: str, dev, seed: int = 0,

@@ -21,7 +21,8 @@ and ``_plain_slot_gate`` (re-exported here as ``charge_batch_plain`` and
 ``slot_gate_plain``) and, over a shard axis, their per-shard loops
 ``_plain_charge_shards`` and ``_plain_gate_shards``: the wrappers take
 them only for CPU tensors; for CUDA tensors they launch the kernel or
-raise.  The stock programs'
+raise; tensors that hold no data take ``kernels/fake.py``'s branch, with
+the work ``charge_cost`` and ``gate_cost`` count.  The stock programs'
 decision code is compiled into the kernel, selected per registry slot by
 a kind code; a registry holding any other program (a user subclass) has
 no CUDA form and raises on CUDA, naming the program.
@@ -44,14 +45,14 @@ import ctypes
 
 import torch
 
-from repro_torch.core.controller import (_plain_charge_batch,
+from repro_torch.core.controller import (DEPTH, _plain_charge_batch,
                                          _plain_charge_shards,
                                          _plain_gate_shards,
                                          _plain_slot_gate, step_reciprocal)
 from repro_torch.core.progs import (GraduatedThrottleProgram, PolicyProgram,
                                     TokenBucketProgram, as_programs)
 from repro_torch.core.sched import WeightedFairProgram
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fake
 
 charge_batch_plain = _plain_charge_batch
 slot_gate_plain = _plain_slot_gate
@@ -87,13 +88,13 @@ fused_slot_gate.launches = 0
 
 
 def _charge_route(dom):
-    if dom.is_cuda:
+    if dom.is_cuda or not fake.holds_data(dom):
         return _launch_charge
     return _plain_charge_batch if dom.dim() == 1 else _plain_charge_shards
 
 
 def _gate_route(slot_dom):
-    if slot_dom.is_cuda:
+    if slot_dom.is_cuda or not fake.holds_data(slot_dom):
         return _launch_gate
     return _plain_slot_gate if slot_dom.dim() == 1 else _plain_gate_shards
 
@@ -237,9 +238,12 @@ def _launch_charge(state: dict, dom, amt, step, progs):
     lead = dom.shape[:-1]
     buf, usage, peak, tu, stall, params, granted, stalled = charge_outputs(
         m, n, P, dom.device, lead)
-    charge_call(state, dom, amt, step, consts, m, n, P, buf,
-                lead[0] if lead else 1)
-    fused_charge_batch.launches += 1
+    if fake.holds_data(dom):
+        charge_call(state, dom, amt, step, consts, m, n, P, buf,
+                    lead[0] if lead else 1)
+        fused_charge_batch.launches += 1
+    else:
+        fake.record("fused_charge_batch", charge_cost(state, dom))
     new_state = dict(state, usage=usage, peak=peak, throttle_until=tu,
                      prog=params, mem_stall=stall)
     return new_state, granted, stalled
@@ -275,8 +279,11 @@ def _launch_gate(state: dict, slot_dom, step, progs):
     m, n = gate_checks(state, slot_dom)
     lead = slot_dom.shape[:-1]
     out = torch.empty(lead + (m,), dtype=torch.bool, device=slot_dom.device)
-    gate_call(state, slot_dom, step, m, out, n, lead[0] if lead else 1)
-    fused_slot_gate.launches += 1
+    if fake.holds_data(slot_dom):
+        gate_call(state, slot_dom, step, m, out, n, lead[0] if lead else 1)
+        fused_slot_gate.launches += 1
+    else:
+        fake.record("fused_slot_gate", gate_cost(state, slot_dom))
     return out
 
 
@@ -288,6 +295,41 @@ def gate_call(state: dict, slot_dom, step, m, out, n: int,
         state["frozen"].data_ptr(), state["throttle_until"].data_ptr(),
         out.data_ptr(), _stream(slot_dom.device))
     _build.check(err, "enforcement_gate")
+
+
+def charge_cost(state: dict, dom, walks=None) -> dict:
+    """The work of one charge, ``{ops, bytes, dtype}``
+    (``timing.cost_bound_ms`` turns it into a bound): the slots and the
+    amounts; parent, high, max, low, priority, prog_id and frozen of each
+    touched domain; usage, peak, throttle_until, mem_stall and the
+    parameter row of every domain, read and written; granted and stalled;
+    ~40 operations a chain level.  ``walks`` is each shard's (domains
+    touched, chain levels walked) where the caller has read the chains
+    (``enforcement_bench.walks``); without it every slot walks ``DEPTH``
+    levels of distinct domains.  The amounts are read once whatever the
+    shard count."""
+    n, P = state["prog"].shape[-2:]
+    m = dom.shape[-1]
+    if walks is None:
+        walks = [(min(n, m * DEPTH), m * DEPTH)] * (
+            dom.shape[0] if dom.dim() == 2 else 1)
+    n_bytes = sum(m * 4 + touched * (6 * 4 + 1) + 2 * n * (4 * 4 + P * 4)
+                  + 2 * m for touched, _ in walks)
+    return {"ops": 40 * sum(levels for _, levels in walks),
+            "bytes": n_bytes + m * 4, "dtype": torch.float32}
+
+
+def gate_cost(state: dict, slot_dom, walks=None) -> dict:
+    """The work of one gate, as ``charge_cost`` counts it: the slots,
+    parent, frozen and throttle_until of each chain level, the flags; ~8
+    operations a level."""
+    m = slot_dom.shape[-1]
+    if walks is None:
+        walks = [(0, m * DEPTH)] * (
+            slot_dom.shape[0] if slot_dom.dim() == 2 else 1)
+    levels = sum(levels for _, levels in walks)
+    return {"ops": 8 * levels, "bytes": len(walks) * m * 5 + levels * 9,
+            "dtype": torch.float32}
 
 
 def empty_launch(dev) -> None:

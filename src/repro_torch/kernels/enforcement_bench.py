@@ -34,9 +34,11 @@ JSON line with:
                 ``call`` (the ctypes call, which launches), and
                 ``wrapper`` (the whole public call), each from the host
                 clock over calls without a synchronize;
-``bound_ms``    the bytes bound (``timing.bound_ms``): the slots, the
-                static columns of the domains they touch, and every
-                domain's mutable row read once and written once;
+``bound_ms``    the bytes bound (``enforcement.charge_cost`` and
+                ``gate_cost`` at this data, ``timing.cost_bound_ms``):
+                the slots, the static columns of the domains they touch,
+                and every domain's mutable row read once and written
+                once;
 ``bit_exact``   the outputs against the plain version on the same
                 inputs.
 
@@ -91,6 +93,7 @@ from repro_torch.core.progs import (GraduatedThrottleProgram, PolicyProgram,
                                     TokenBucketProgram, pad_row)
 from repro_torch.core.sched import WeightedFairProgram
 from repro_torch.kernels import _build, timing
+from repro_torch.kernels import enforcement as E
 
 TENANTS = 7
 SHAPES = {
@@ -271,36 +274,27 @@ def _shards(state: dict, dom) -> list:
     return list(zip(parent, d))
 
 
-def charge_bound(state: dict, dom) -> tuple:
-    """``timing.bound_ms`` of a charge: dom and amt; parent, high, max,
-    low, priority, prog_id and frozen of each touched domain; usage,
-    peak, throttle_until, mem_stall and the parameter row of every
-    domain read and written; granted and stalled; ~40 operations a
-    chain level.  With a shard axis, each shard's share summed (the
-    amounts read once)."""
-    n, P = state["prog"].shape[-2:]
-    n_bytes, ops = 0, 0
+def walks(state: dict, dom) -> list:
+    """Each shard's (domains touched, chain levels walked) by its slots,
+    read from the table: what ``E.charge_cost`` and ``E.gate_cost`` count
+    for this run's data.  A dead slot touches the root."""
+    out = []
     for parent, d in _shards(state, dom):
         chains = _chains(parent, d)
         touched = {x for c in chains for x in c} | ({0} if (d < 0).any()
                                                      else set())
-        m = len(d)
-        n_bytes += (m * 4 + len(touched) * (6 * 4 + 1)
-                    + 2 * n * (4 * 4 + P * 4) + 2 * m)
-        ops += 40 * sum(map(len, chains))
-    return timing.bound_ms(n_bytes + dom.shape[-1] * 4, ops, torch.float32)
+        out.append((len(touched), sum(map(len, chains))))
+    return out
+
+
+def charge_bound(state: dict, dom) -> tuple:
+    """``timing.cost_bound_ms`` of ``E.charge_cost`` at this data."""
+    return timing.cost_bound_ms(E.charge_cost(state, dom, walks(state, dom)))
 
 
 def gate_bound(state: dict, dom) -> tuple:
-    """``timing.bound_ms`` of a gate: slot_dom, parent, frozen and
-    throttle_until of each chain level, the flags."""
-    n_bytes, ops = 0, 0
-    for parent, d in _shards(state, dom):
-        chains = _chains(parent, d)
-        levels = sum(map(len, chains))
-        n_bytes += len(chains) * 5 + levels * 9
-        ops += 8 * levels
-    return timing.bound_ms(n_bytes, ops, torch.float32)
+    """``timing.cost_bound_ms`` of ``E.gate_cost`` at this data."""
+    return timing.cost_bound_ms(E.gate_cost(state, dom, walks(state, dom)))
 
 
 def same_tables(a: dict, b: dict) -> bool:

@@ -18,9 +18,11 @@ file says what bounds the kernel and how its design answers it.
 
 ``ssd_plain`` is the plain torch version (the Pallas kernel's math, one
 chunk at a time): the wrapper takes it only for CPU tensors; CUDA
-tensors launch the kernel or raise.  Both return the f32 state after the
-last chunk, the state they carried; the reference recomputes it outside
-its kernel (``_final_state``), and the tests hold the two together.
+tensors launch the kernel or raise; tensors that hold no data take
+``kernels/fake.py``'s branch, with the work ``cost`` counts.  Both
+return the f32 state after the last chunk, the state they carried; the
+reference recomputes it outside its kernel (``_final_state``), and the
+tests hold the two together.
 Neither has a gradient, like the reference's kernel: training a Mamba
 model on the card waits for an SSD backward (ROADMAP Queue 1 item 7).
 """
@@ -31,7 +33,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fake
 
 MAX_CHUNK = 256      # rows of a chunk the kernel stages in shared memory
 MAX_STATE = 16       # state width N the kernel holds
@@ -88,12 +90,30 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256, h0=None):
     if h0 is not None:
         raise ValueError("ssd_scan is the full-sequence path; decode uses "
                          "ssd_decode")
-    if not x.is_cuda:
+    if not x.is_cuda and fake.holds_data(x):
         return ssd_plain(x, dt, A, B, C, D, chunk=chunk)
     return _launch(x, dt, A, B, C, D, chunk)
 
 
 ssd_scan.launches = 0
+
+
+def cost(x, dt, A, B, C, D, *, chunk: int = 256) -> dict:
+    """The work of one call, ``{ops, bytes, dtype}``
+    (``timing.cost_bound_ms`` turns it into a bound): bytes, x and y in
+    x's dtype, dt and dt * A in f32, B and C in x's dtype, the f32 D and
+    the f32 h_final; operations, the products the Pallas kernel does a
+    (chunk, head), dense over the chunk: C B^T, M x, C h^T and the
+    state."""
+    b, s, nh, dh = x.shape
+    N = B.shape[-1]
+    c = _chunk(s, chunk)
+    e = x.element_size()
+    n_bytes = (2 * e * b * s * nh * dh + 2 * 4 * b * s * nh
+               + 2 * e * b * s * N + 4 * nh + 4 * b * nh * dh * N)
+    n_ops = (s // c) * b * nh * (2 * c * c * N + 2 * c * c * dh
+                                 + 2 * 2 * c * N * dh)
+    return {"ops": n_ops, "bytes": n_bytes, "dtype": x.dtype}
 
 
 def _launch(x, dt, A, B, C, D, chunk):
@@ -122,6 +142,7 @@ def _launch(x, dt, A, B, C, D, chunk):
                          f"{tuple(C.shape)} D {tuple(D.shape)}")
     # B and C may be strided views (the halves of one projection): their
     # batch and row strides go to the kernel, the state axis must be dense
+    real = fake.holds_data(x)
     for name, t in (("x", x), ("B", B), ("C", C)):
         if t.device != dev or t.stride(-1) != 1 \
                 or (name == "x" and not t.is_contiguous()):
@@ -137,6 +158,9 @@ def _launch(x, dt, A, B, C, D, chunk):
     nc = s // c if x.dtype == torch.bfloat16 else 0
     states = torch.empty(b, nc, nh, dh, N, dtype=torch.float32, device=dev)
     decay = torch.empty(b, nc, nh, dtype=torch.float32, device=dev)
+    if not real:
+        fake.record("ssd_scan", cost(x, dt, A, B, C, D, chunk=chunk))
+        return y, h
     err = _lib().ssd_scan(
         x.data_ptr(), dtf.data_ptr(), ldec.data_ptr(), B.data_ptr(),
         C.data_ptr(), Df.data_ptr(), y.data_ptr(), h.data_ptr(),

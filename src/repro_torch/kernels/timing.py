@@ -1,7 +1,8 @@
 """Clocks and bounds for the port's kernels on the card, shared by
 ``chip_smoke.py`` and the studies in this package (``decode_bench``,
-``ssd_ablation``): the H100's data-sheet rates and the least time a piece
-of work can take at them, the card's name and power limit, the time a
+``ssd_ablation``): the H100's data-sheet rates (``launch/mesh.py::HW``)
+and the least time a piece of work can take at them (the one place that
+divides by them), the card's name and power limit, the time a
 call from CUDA events (the issue pace: the slower of the host issuing
 calls and the device running them), and each kernel's device time from
 ``torch.profiler``.  Nothing here touches the card at import time.
@@ -12,9 +13,12 @@ import subprocess
 
 import torch
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense bf16 and f32 peaks
-MEM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+from repro_torch.launch.mesh import HW
+
+# the card's HBM3 bandwidth and dense bf16 and f32 peaks (``HW``)
+MEM_BYTES_PER_S = HW["hbm_bw"]
+PEAK_OPS_PER_S = {torch.bfloat16: HW["flops_bf16"],
+                  torch.float32: HW["flops_f32"]}
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
@@ -24,6 +28,12 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
     t_ops = n_ops / PEAK_OPS_PER_S[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cost_bound_ms(cost: dict) -> tuple[float, str]:
+    """``bound_ms`` of a kernel's ``cost(...)``: ``{ops, bytes,
+    dtype}``."""
+    return bound_ms(cost["bytes"], cost["ops"], cost["dtype"])
 
 
 def card_line() -> str:

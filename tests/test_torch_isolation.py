@@ -82,3 +82,22 @@ def test_every_config_module_is_checked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "True"
+
+
+def test_dry_run_modules_are_checked():
+    """The dry run and its analysis (the hardware table, the no-data
+    branch of the kernels, the cost counter, the roofline) are among the
+    files the import check reads, and the blocked-import run imports
+    them."""
+    new = ("launch/dryrun.py", "launch/mesh.py", "analysis/costs.py",
+           "analysis/roofline.py", "kernels/fake.py")
+    assert {PORT / n for n in new} <= set(port_files())
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    mods = [f"repro_torch.{n[:-3].replace('/', '.')}" for n in new]
+    code = BLOCKER.replace("print(len(names))",
+                           f"print(all(m in names for m in {mods!r}))")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True"
+
