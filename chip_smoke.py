@@ -8,6 +8,10 @@ Phases, one JSON line each on standard output:
   env            torch/CUDA versions, the card, the kernel build (every
                  ``src/repro_torch/csrc/*.cu`` built by ``nvcc`` into
                  ``build/kernels``, one compiler per source, in parallel).
+  lint           the port's tracelint (``repro_torch.analysis.lint``) over
+                 ``src/repro_torch`` and this script with the checked-in
+                 baseline: the rule table, the files read, the findings
+                 (any finding fails the script) and the seconds it took.
   sass           (with kernels) the HGMMA and UTMALDG (TMA) instructions of
                  each bf16 flash forward, and the HMMA and LDGSTS (cp.async)
                  of each bf16 flash backward kernel, of the bf16 SSD state
@@ -147,7 +151,14 @@ Phases, one JSON line each on standard output:
                  train_4k's sequence of 4096 at batch 1, ``remat="dots"``,
                  AdamW with the cosine schedule, 8 steps (2 untimed):
                  finite losses, the first where random weights put it, and
-                 the flash launches the layers imply.
+                 the flash launches the layers imply; then the same model
+                 cut to 2 layers trained 8 steps from the same weights
+                 and batches through the bf16 and the f32 flash kernels
+                 (``repro_torch.training.trajectory``): both loss
+                 trajectories, and the bf16 loss of each warmup step
+                 (0-4; the f32 run diverges after them at this rate)
+                 within ``REL_BAR`` of the f32 one, relative (twice the
+                 same pair's drift on the CPU at reduced width).
   prefill_parity the reduced f32 jamba-v0.1-52b (one group: 7 Mamba, 1
                  attention, 4 MoE layers) forward on the card through the
                  kernels and on the CPU through their plain versions, from
@@ -1862,6 +1873,37 @@ TRAIN_FULL = ["--arch", "llama3.2-3b", "--shape", "train_4k", "--batch",
 TRAIN_WARM = 2
 
 
+def train_trajectory(dev, seed: int) -> dict:
+    """``trajectory.compare`` on the card: llama3.2-3b at full width cut
+    to ``trajectory.LAYERS`` layers, from the same weights and batches in
+    bf16 and in f32 through the flash kernels; the warmup steps held by
+    ``trajectory.verdict``, and the flash launches the two runs imply."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training import trajectory as T
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    runs = T.compare(T.model_config(), seed=seed, device=dev)
+    seconds = time.perf_counter() - t
+    counts = launch_counts()
+    want = {"flash_fwd": len(T.RUNS) * 2 * T.LAYERS * T.STEPS,
+            "flash_bwd": len(T.RUNS) * T.LAYERS * T.STEPS}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"trajectory launches {got}, expected {want}")
+    if not all(np.isfinite(sum(runs.values(), []))):
+        raise AssertionError(f"trajectory losses {runs}")
+    held = T.verdict(runs)
+    if held["over"]:
+        raise AssertionError(
+            f"bf16 losses drift from f32 beyond {T.REL_BAR} at steps "
+            f"{held['over']}: {dict(runs, **held)}")
+    return {"layers": T.LAYERS, "steps": T.STEPS, "seq": T.SEQ,
+            "cpu_rel_drift": T.CPU_REL_DRIFT, "seconds": seconds,
+            "launches": got, "runs": runs, **held}
+
+
 def train_full(dev, seed: int) -> dict:
     """The port's training driver at full width.  With ``remat="dots"``
     every layer runs the flash forward twice (the step and the recompute
@@ -1902,7 +1944,7 @@ def train_full(dev, seed: int) -> dict:
             "allocated_at_start_gb": base / 1e9, "losses": losses,
             "first_loss_expected": expect,
             "ln_padded_vocab": float(np.log(cfg.padded_vocab)),
-            "launches": got}
+            "launches": got, "trajectory": train_trajectory(dev, seed)}
 
 
 JAMBA = "jamba-v0.1-52b"
@@ -3200,11 +3242,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernels,engine_parity,engine_full,conformance,"
+                    default="lint,kernels,engine_parity,engine_full,conformance,"
                             "replay,serve_full,families_full,control_full,"
                             "train_parity,train_full,prefill_parity,"
                             "prefill_full,frontends_full,mla_full,dryrun",
-                    help="comma-separated phases to run, of kernels, "
+                    help="comma-separated phases to run, of lint, "
+                         "kernels, "
                          "engine_parity, engine_full, conformance, replay, "
                          "serve_full, families_full, control_full, "
                          "train_parity, train_full, prefill_parity, "
@@ -3213,7 +3256,7 @@ def main() -> None:
                          "profile, "
                          "train_profile and prefill_profile (not in the "
                          "default run); the result line is printed only "
-                         "when kernels, engine_full, conformance, "
+                         "when lint, kernels, engine_full, conformance, "
                          "serve_full, families_full, control_full, "
                          "train_full, prefill_full, frontends_full, "
                          "mla_full and dryrun ran")
@@ -3228,6 +3271,29 @@ def main() -> None:
         run_phases(phases, args.seed, refs)
     finally:
         refs.close()
+
+
+def lint_phase() -> dict:
+    """The port's tracelint over the tree as shipped, with the checked-in
+    baseline, paths relative to the working directory (the root of a
+    checkout) as the baseline's fingerprints are."""
+    from repro_torch.analysis.lint import (apply_baseline, lint_paths,
+                                           load_baseline)
+    from repro_torch.analysis.lint.cli import rule_table
+    from repro_torch.analysis.lint.core import iter_py_files
+
+    t = time.perf_counter()
+    paths = [os.path.relpath(SRC / "repro_torch"),
+             os.path.relpath(ROOT / "chip_smoke.py")]
+    found, grandfathered = apply_baseline(
+        lint_paths(paths), load_baseline(str(ROOT / "tracelint-baseline.json")))
+    seconds = time.perf_counter() - t
+    if found:
+        raise AssertionError("tracelint findings:\n"
+                             + "\n".join(f.format() for f in found))
+    return {"rules": rule_table(), "paths": paths,
+            "files": len(iter_py_files(paths)), "findings": len(found),
+            "grandfathered": grandfathered, "seconds": seconds}
 
 
 def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
@@ -3250,6 +3316,10 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
           "device_count": torch.cuda.device_count(), "build_s": build_s,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
 
+    lint = None
+    if "lint" in phases:
+        lint = lint_phase()
+        emit({"phase": "lint", **lint})
     rows = None
     if "kernels" in phases:
         emit({"phase": "sass", **kernel_sass(libs)})
@@ -3415,7 +3485,8 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
     if "prefill_profile" in phases:
         emit({"phase": "prefill_profile", "card": card,
               **prefill_profile(dev, seed)})
-    if rows is None or full is None or train is None or prefill is None \
+    if lint is None or rows is None or full is None or train is None \
+            or prefill is None \
             or conf is None or served is None or ctrl is None or fams is None \
             or fronts is None or mla_run is None or dry is None:
         return

@@ -216,9 +216,12 @@ def charge_outputs(m: int, n: int, P: int, dev, lead=()) -> tuple:
             flags[:m].view(slots), flags[m:2 * m].view(slots))
 
 
-def charge_call(state: dict, dom, amt, step, consts, m, n, P, buf,
+def charge_call(state: dict, dom, amt, step: int, consts, m, n, P, buf,
                 S: int = 1) -> None:
-    """The ctypes call that launches the charge kernel into ``buf``."""
+    """The ctypes call that launches the charge kernel into ``buf``.
+    ``step`` is the engine's Python step count, passed by value: a CUDA
+    graph that captured this launch would replay the step it saw
+    (tracelint TL002 flags such a capture)."""
     kinds, n_kinds, inv_step, _ = consts
     err = _charge_lib().enforcement_charge(
         dom.data_ptr(), amt.data_ptr(), m, S, int(step), inv_step,
@@ -287,9 +290,10 @@ def _launch_gate(state: dict, slot_dom, step, progs):
     return out
 
 
-def gate_call(state: dict, slot_dom, step, m, out, n: int,
+def gate_call(state: dict, slot_dom, step: int, m, out, n: int,
               S: int = 1) -> None:
-    """The ctypes call that launches the gate kernel into ``out``."""
+    """The ctypes call that launches the gate kernel into ``out``;
+    ``step`` by value, as in ``charge_call``."""
     err = _gate_lib().enforcement_gate(
         slot_dom.data_ptr(), m, S, n, int(step), state["parent"].data_ptr(),
         state["frozen"].data_ptr(), state["throttle_until"].data_ptr(),

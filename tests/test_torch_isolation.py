@@ -101,3 +101,39 @@ def test_dry_run_modules_are_checked():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "True"
 
+
+
+LINT_MODULES = ("__init__", "__main__", "baseline", "cli", "core", "report",
+                "rules")
+
+
+def test_lint_modules_are_checked():
+    """The port's tracelint (``analysis/lint/``, seven modules) is among
+    the files the import check reads, and it is pure stdlib: it imports
+    and lints with torch blocked as well as jax and the JAX package."""
+    lint = PORT / "analysis" / "lint"
+    assert {lint / f"{m}.py" for m in LINT_MODULES} <= set(port_files())
+    for m in LINT_MODULES:
+        bad = [(line, mod) for line, mod in imported_modules(lint / f"{m}.py")
+               if mod.split(".")[0] in FORBIDDEN + ("torch", "numpy")]
+        assert not bad, f"analysis/lint/{m}.py imports {bad}"
+    code = BLOCKER.split("sys.meta_path.insert(0, Block())")[0].replace(
+        '("jax", "jaxlib", "repro")', '("jax", "jaxlib", "repro", "torch")'
+    ) + """
+sys.meta_path.insert(0, Block())
+mods = [f"repro_torch.analysis.lint.{m}" for m in
+        ("baseline", "cli", "core", "report", "rules")]
+for name in mods:
+    importlib.import_module(name)
+from repro_torch.analysis.lint import lint_sources
+found = lint_sources({"core/progs.py":
+                      "def charge_decision(p, v, r):\\n"
+                      "    return v.usage.item()\\n"})
+assert "torch" not in sys.modules
+print([f.rule for f in found])
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "['TL001']"
