@@ -47,7 +47,10 @@ Phases, one JSON line each on standard output:
                  backward at the training shape (B=1, S=4096, H=24, Hkv=8,
                  d=128, bf16, causal), at a ragged S=1000, non-causal and
                  causal, f32 and bf16, at S=333 against Sk=1000 (f32 full,
-                 bf16 causal), in bf16 at d 32, 64 and 80, and at each
+                 bf16 causal), in bf16 at d 32, 64 and 80, in f32 at the
+                 examples' training shapes (B 4, S 64, H 4 / 2, d 32 and
+                 B 8, S 256, H 8 / 4, d 64, causal; timed beside their
+                 bounds, plain versions and the library), and at each
                  new family's heads at the training shape (minicpm H 36 /
                  Hkv 36 d 64, phi3 40/10, maverick 40/8, internlm2 48/8
                  at d 128; bf16, causal, timed beside their bounds): every element
@@ -118,11 +121,12 @@ Phases, one JSON line each on standard output:
                  overshoot, the launches the steps imply; step p50/p95 and
                  tokens/s.
   families_full  ``launch.serve`` as serve_full on every other family at
-                 full width (bf16, seeded random weights): phi3-medium-
-                 14b, minicpm-2b, internlm2-20b, xlstm-350m and
-                 pixtral-12b (d 160) at full depth, llama4-maverick cut
-                 to 2 layers, Jamba to 8 and deepseek-v2-236b to 4 (the
-                 cuts printed with their reason); each report equal
+                 full width (bf16, seeded random weights): minicpm-2b,
+                 xlstm-350m and pixtral-12b (d 160) at full depth,
+                 phi3-medium-14b and internlm2-20b cut to 8 layers (the
+                 script's time), llama4-maverick to 2 layers, Jamba to 8
+                 and deepseek-v2-236b to 4 (the cuts printed with their
+                 reason); each report equal
                  to the same config's reduced CPU run, the gate read on
                  the live table each step, one charge and one gate launch
                  a step and a decode launch per GQA attention layer a
@@ -199,6 +203,23 @@ Phases, one JSON line each on standard output:
                  the full-width deepseek-v2-236b cut to 4 layers over one
                  4096-token sequence: 4 flash launches a call, finite
                  logits, the cross-entropy where random weights put it.
+  examples       the example twins (``repro_torch.examples``) on the
+                 card, each against the port's CPU run: quickstart from
+                 seeded CPU weights (its §1-§1c lines equal, its 10 f32
+                 losses within 1e-4 relative, §3's report equal, a charge
+                 launch a device-table charge and engine step);
+                 serve_agents ``--full`` (llama3.2-3b, 28 layers, bf16) in
+                 nolimit, userspace and agentcgroup, each mode's report
+                 equal to the reduced f32 CPU run's, 28 decode launches a
+                 step, a charge launch a step in agentcgroup only, step
+                 p50/p95 and tokens/s by mode; train_100m at its defaults
+                 (d 512, 8 layers, f32, 300 steps) with
+                 ``--grad-compress`` and checkpoints under ``build/``:
+                 the first 5 losses within 1e-4 relative of the CPU run,
+                 the last below step 0's, each kept checkpoint restoring
+                 bit for bit to a copy of its step's tree, 8 flash
+                 forward and backward launches a step; tokens/s, peak
+                 memory, seconds.
   dryrun         each full-width run above that measures a peak
                  (train_full, hubert's and pixtral's training, the Jamba
                  prefill, pixtral's and deepseek's forwards) against
@@ -220,10 +241,10 @@ Phases, one JSON line each on standard output:
                  prefills of the prefill_full configuration.
 
 The CPU engine runs that engine_parity, engine_full, serve_full,
-families_full and control_full compare with, and the dry runs
-(``cpu_reference``), run in worker processes started with the script
-(``CpuRefs``), while the card works; the script stops them before it
-exits.  Every ``bound_ms`` of the kernel table comes from the kernels'
+families_full and control_full compare with, the examples' CPU runs and
+the dry runs (``cpu_reference``), run in worker processes started with
+the script (``CpuRefs``), while the card works; the script stops them
+before it exits.  Every ``bound_ms`` of the kernel table comes from the kernels'
 own ``cost`` functions.
 
 Then the kernel table (one JSON object), the card's ``name, power.limit``
@@ -874,11 +895,13 @@ def check_flash(dev, seed: int) -> dict:
     for d in (32, 64, 80):
         cases.append((f"head{d}_bf16_causal", torch.bfloat16, True,
                       dict(B=1, S=1000, H=8, hkv=2, d=d)))
+    cases += [(name, torch.float32, True, shape)
+              for name, shape in FLASH_EXAMPLES.items()]
     # each new family's heads at the training shape
     for name, heads in FLASH_GROUPS.items():
         cases.append((f"group_{name}_bf16_causal", torch.bfloat16, True,
                       dict(B=1, S=4096, **heads)))
-    family_times = {}
+    family_times, example_times = {}, {}
     for name, dtype, causal, shape in cases:
         q, k, v, do = _flash_inputs(g, dev, dtype, **shape)
         errs = _flash_errs(FA, R, q, k, v, do, causal)
@@ -888,7 +911,12 @@ def check_flash(dev, seed: int) -> dict:
         out[name] = errs
         if name.startswith("group_"):
             family_times[name] = _flash_times(FA, q, k, v, do, **shape)
+        if name in FLASH_EXAMPLES:
+            example_times[name] = dict(
+                _flash_times(FA, q, k, v, do, plain=R, **shape),
+                library=library_attention(q, k, v, do, causal))
     out["family_times"] = family_times
+    out["times_by_example"] = example_times
     # the training shape: times against the bound and the library call
     q, k, v, do = _flash_inputs(g, dev, torch.bfloat16, **FLASH_TRAIN)
     o, lse = FA.flash_fwd(q, k, v, causal=True)
@@ -943,20 +971,37 @@ FLASH_GROUPS = {
 }
 
 
-def _flash_times(FA, q, k, v, do, causal=True, backward=True, **_) -> dict:
-    """The bf16 flash forward's (and backward's) issue pace at one shape,
-    beside their bounds (the kernels' ``cost``)."""
+def _flash_times(FA, q, k, v, do, causal=True, backward=True, plain=None,
+                 **_) -> dict:
+    """The flash forward's (and backward's) issue pace at one shape,
+    beside their bounds (the kernels' ``cost``) and, given the plain
+    versions' module ``plain``, their times."""
     o, lse = FA.flash_fwd(q, k, v, causal=causal)
     out = {"fwd_ms": cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=causal),
                              5, 1),
            "fwd_bound_ms": cost_bound_ms(FA.cost(q, k, v,
                                                  causal=causal))[0]}
+    if plain is not None:
+        out["fwd_plain_ms"] = cuda_ms(
+            lambda: plain.flash_fwd(q, k, v, causal=causal), 3, 1)
     if backward:
         out.update(bwd_ms=cuda_ms(lambda: FA.flash_bwd(
             q, k, v, o, lse, do, causal=causal), 3, 1),
             bwd_bound_ms=cost_bound_ms(FA.cost(q, k, v, causal=causal,
                                                backward=True))[0])
+        if plain is not None:
+            out["bwd_plain_ms"] = cuda_ms(lambda: plain.flash_bwd(
+                q, k, v, o, lse, do, causal=causal), 3, 1)
     return out
+
+
+# the examples' f32 training shapes: quickstart's reduced llama3.2-3b
+# (H 4 / 2, d 32, batch 4, seq 64) and train_100m's d-512 model (H 8 / 4,
+# d 64, batch 8, seq 256)
+FLASH_EXAMPLES = {
+    "example_quickstart_f32_causal": dict(B=4, S=64, H=4, hkv=2, d=32),
+    "example_train100m_f32_causal": dict(B=8, S=256, H=8, hkv=4, d=64),
+}
 
 
 # pixtral-12b's heads at the training shape (d 160: a forward only) and
@@ -1485,7 +1530,9 @@ def cpu_reference(key: str, seed: int) -> dict:
     ``serve`` (serve_full's sessions, also control_full's device run),
     ``async`` and ``poisoned`` (control_full's daemon runs) and
     ``family:<arch>`` (families_full's); ``dryrun:<run>``, the dry run
-    of a ``DRYRUN_RUNS`` run (``dry_run``); for ``parity:<arch>:<mode>``,
+    of a ``DRYRUN_RUNS`` run (``dry_run``); ``example:<name>``, the
+    examples phase's CPU run of an example twin (``example_reference``);
+    for ``parity:<arch>:<mode>``,
     engine_parity's CPU run of the reduced ``arch`` in a
     ``PARITY_MODES`` mode (``parity_run``: report, token streams,
     retuner actions)."""
@@ -1498,6 +1545,9 @@ def cpu_reference(key: str, seed: int) -> dict:
 
     if key.startswith("dryrun:"):
         return dry_run(key.split(":", 1)[1])
+    if key.startswith("example:"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return example_reference(key.split(":", 1)[1], seed)
     with contextlib.redirect_stdout(io.StringIO()):
         if key.startswith("parity:"):
             _, arch, mode = key.split(":")
@@ -1553,7 +1603,11 @@ class CpuRefs:
                             ("families_full",
                              [f"family:{a}" for a in FAMILIES_FULL]),
                             ("control_full",
-                             ["serve", "async", "poisoned", "sharded"])):
+                             ["serve", "async", "poisoned", "sharded"]),
+                            ("examples",
+                             [f"example:{n}" for n in ("train_100m",
+                                                       "quickstart",
+                                                       "serve_agents")])):
             if phase in phases:
                 keys += [k for k in want if k not in keys]
         if "dryrun" in phases:
@@ -2919,10 +2973,18 @@ def serve_full(dev, seed: int, refs: CpuRefs) -> dict:
 
 
 # each family's depth on one card (0: the config's own) and why it is cut
+# the time the whole script may take (1,200 s with the build; 854-1,124
+# s on one H100 80GB HBM3 at 700 W before the examples phase joined)
+# cuts the two deepest dense families:
+# their reports follow session phases, not depth, and the decode kernel
+# runs at their heads at any depth
+TIME_CUT = ("{} -> 8 layers: the examples phase's ~70-95 s inside the "
+            "script's 1,200 s on one card; the host-bound step takes "
+            "~1.1-1.7 ms a layer, and the report does not follow depth")
 FAMILIES_FULL = {
-    "phi3-medium-14b": (0, None),
+    "phi3-medium-14b": (8, TIME_CUT.format(40)),
     "minicpm-2b": (0, None),
-    "internlm2-20b": (0, None),
+    "internlm2-20b": (8, TIME_CUT.format(48)),
     "pixtral-12b": (0, None),
     "llama4-maverick-400b-a17b": (
         2, "48 -> 2 layers: one dense + MoE group; the 128-expert MoE "
@@ -3220,6 +3282,287 @@ def control_full(dev, seed: int, refs: CpuRefs,
     return out
 
 
+# ----------------------------------------------------------------- examples
+
+# train_100m as the examples phase runs it: the source's defaults (300
+# steps of the d-512, 8-layer model, batch 8, seq 256) with int8
+# gradient compression; its checkpoints under build/
+EXAMPLE_TRAIN = ["--grad-compress"]
+EXAMPLE_CKPT = ROOT / "build" / "examples_train100m"
+EXAMPLE_CPU_STEPS = 5        # train_100m steps the CPU run takes
+EXAMPLE_REL = 1e-4           # losses, card against the CPU run, relative
+
+
+def example_weights(name: str, seed: int) -> dict:
+    """quickstart's or train_100m's weights, drawn on the CPU from a
+    seeded generator (a card's generator draws other values) so that the
+    card's run and the CPU run start from the same ones."""
+    from repro_torch.examples import quickstart as QS
+    from repro_torch.examples import train_100m as T100
+    from repro_torch.models import model as M
+
+    if name == "quickstart":
+        cfg = QS.model_config()
+    else:
+        args = T100.parser().parse_args(EXAMPLE_TRAIN)
+        cfg = T100.build_cfg(args.d_model, args.layers)
+    return M.init_params(cfg, torch.Generator().manual_seed(seed),
+                         device="cpu")
+
+
+def example_sections(text: str) -> dict:
+    """quickstart's printed output by section header (``1``, ``1b``,
+    ...)."""
+    return {part.split(".", 1)[0]: part
+            for part in ("\n" + text).split("\n== ")[1:]}
+
+
+def example_reference(name: str, seed: int):
+    """The port's CPU run an example on the card is held to: quickstart
+    whole (what it returns and its printed text), serve_agents' reduced
+    f32 run (each mode's report), train_100m's first
+    ``EXAMPLE_CPU_STEPS`` losses from the same weights and batches."""
+    from repro_torch.examples import quickstart as QS
+    from repro_torch.examples import serve_agents as SA
+    from repro_torch.examples import train_100m as T100
+
+    if name == "quickstart":
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            out = QS.main(["--device", "cpu"],
+                          params=example_weights(name, seed))
+        return dict(out, text=text.getvalue())
+    if name == "serve_agents":
+        return SA.main(["--device", "cpu", "--seed", str(seed)])
+    args = T100.parser().parse_args(EXAMPLE_TRAIN + ["--device", "cpu"])
+    params, opt, step, data = T100.trainer(
+        args, torch.device("cpu"), example_weights(name, seed))
+    losses = []
+    for i in range(EXAMPLE_CPU_STEPS):
+        params, opt, m = step(params, opt, data.at(i), i)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def example_quickstart(dev, seed: int, refs: CpuRefs) -> dict:
+    """``repro_torch.examples.quickstart`` on the card against its CPU
+    run from the same weights: §1-§1c's lines equal, every §2 loss
+    within ``EXAMPLE_REL`` relative (the f32 flash kernels against the
+    plain f32 attention), §3's report equal; a charge launch for each
+    device-table charge and engine step, a decode launch a layer a step,
+    a flash forward and backward a layer a train step."""
+    from repro_torch.examples import quickstart as QS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training.trajectory import rel_drift
+
+    params = to_device(example_weights("quickstart", seed), dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out = QS.main(["--device", "cuda"], params=params)
+    seconds = time.perf_counter() - t
+    counts = launch_counts()
+    ref = refs.get("example:quickstart")
+    got, want = example_sections(text.getvalue()), \
+        example_sections(ref["text"])
+    for sec in ("1", "1b", "1c"):
+        if got.get(sec) != want.get(sec):
+            raise AssertionError(f"quickstart §{sec} differs from the CPU "
+                                 f"run:\n{got.get(sec)}\n{want.get(sec)}")
+    err = max(rel_drift(out["losses"], ref["losses"]))
+    if not err <= EXAMPLE_REL:
+        raise AssertionError(f"quickstart losses {out['losses']} against "
+                             f"the CPU run's {ref['losses']}: {err}")
+    if out["report"] != ref["report"]:
+        raise AssertionError(f"quickstart §3 report differs from the CPU "
+                             f"run:\n{out['report']}\n{ref['report']}")
+    layers, steps = QS.model_config().n_layers, out["engine_steps"]
+    expect = {k: 0 for k in counts}
+    expect.update(fused_charge_batch=QS.DEVICE_CHARGES + steps,
+                  decode_attention=layers * steps,
+                  flash_fwd=10 * layers, flash_bwd=10 * layers)
+    if counts != expect:
+        raise AssertionError(f"quickstart launches {counts}, expected "
+                             f"{expect}")
+    return {"seconds": seconds, "losses": out["losses"],
+            "cpu_losses": ref["losses"], "loss_rel_err": err,
+            "engine_steps": steps, "report": out["report"],
+            "launches": counts, "lines": text.getvalue().splitlines()}
+
+
+def example_serve_agents(dev, seed: int, refs: CpuRefs) -> dict:
+    """``repro_torch.examples.serve_agents --full`` on the card:
+    llama3.2-3b at full width (28 layers, bf16, seeded weights on the
+    card) serving the source's 5 sessions in each controller mode, each
+    mode's report (its printed row included) equal to the reduced f32
+    CPU run's, the agentcgroup row with every session done and no
+    overshoot; 28 decode launches a step in every mode, a charge launch
+    a step in agentcgroup only (the others account after the fact, in
+    torch); step p50/p95 and tokens/s by mode."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_agents as SA
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+
+    args = SA.parser().parse_args(["--full", "--seed", str(seed)])
+    cfg = SA.model_config(args.arch, full=True)
+    if cfg != get_config("llama3.2-3b"):
+        raise AssertionError("serve_agents --full is not llama3.2-3b")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    ref = refs.get("example:serve_agents")
+    out = {}
+    for name in SA.MODES:
+        eng = SA.engine(cfg, params, name, sessions=args.sessions,
+                        pool_pages=args.pool_pages, seed=args.seed,
+                        device=dev)
+        sessions = list(eng.sessions.values())
+        step_ms, tokens = [], 0
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        while not eng.done() and eng.step_no < SA.MAX_STEPS:
+            before = sum(s.length for s in sessions)
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            tokens += max(0, sum(s.length for s in sessions) - before)
+        counts = launch_counts()
+        report, steps = eng.report(), eng.step_no
+        row, want_row = SA.row(name, report), SA.row(name, ref[name])
+        if row != want_row or report != ref[name]:
+            raise AssertionError(f"serve_agents {name}: full-width report "
+                                 f"differs from the reduced CPU run:\n"
+                                 f"{row}\n{want_row}\n{report}\n{ref[name]}")
+        expect = {k: 0 for k in counts}
+        expect.update(decode_attention=cfg.n_layers * steps,
+                      fused_charge_batch=steps if name == "agentcgroup"
+                      else 0)
+        if counts != expect:
+            raise AssertionError(f"serve_agents {name}: launches {counts}, "
+                                 f"expected {expect}")
+        total_s = sum(step_ms) / 1e3
+        out[name] = {"row": row, "steps": steps,
+                     "step_ms_p50": statistics.median(step_ms),
+                     "step_ms_p95": float(np.percentile(step_ms, 95)),
+                     "tokens": tokens, "tokens_per_s": tokens / total_s,
+                     "launches": counts, "report": report}
+        del eng
+    done = out["agentcgroup"]["report"]
+    if done["completed"] != args.sessions or done["overshoot_pages"]:
+        raise AssertionError(f"serve_agents agentcgroup: {done}")
+    return {"header": SA.header(), "modes": out}
+
+
+def example_train_100m(dev, seed: int, refs: CpuRefs) -> dict:
+    """``repro_torch.examples.train_100m --grad-compress`` on the card at
+    its defaults (the d-512 model, f32, 300 steps, a checkpoint every 100
+    steps, the newest 2 kept): finite losses, the first
+    ``EXAMPLE_CPU_STEPS`` within ``EXAMPLE_REL`` relative of the CPU run
+    from the same weights and batches, the last below step 0's; each
+    kept checkpoint restoring bit for bit (``ckpt.load``, the newest
+    through ``restore_latest``) to a copy of the tree taken when it was
+    saved; a flash forward and backward a layer a step."""
+    import shutil
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.examples import train_100m as T100
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training.trajectory import rel_drift
+
+    copies, managers = {}, []
+    base = T100.CheckpointManager
+
+    class Kept(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            managers.append(self)
+
+        def maybe_save(self, step, tree, *, force=False):
+            saved = super().maybe_save(step, tree, force=force)
+            if saved:
+                copies[step] = tree_map(
+                    lambda t: t.detach().to("cpu", copy=True), tree)
+            return saved
+
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    argv = EXAMPLE_TRAIN + ["--ckpt-dir", str(EXAMPLE_CKPT)]
+    args = T100.parser().parse_args(argv)
+    params = to_device(example_weights("train_100m", seed), dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    text = io.StringIO()
+    T100.CheckpointManager = Kept
+    try:
+        with contextlib.redirect_stdout(text):
+            out = T100.main(argv, params=params)
+    finally:
+        T100.CheckpointManager = base
+    counts = launch_counts()
+    losses = out["losses"]
+    if len(losses) != args.steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train_100m losses {losses}")
+    ref = refs.get("example:train_100m")
+    err = max(rel_drift(losses[:EXAMPLE_CPU_STEPS], ref))
+    if not err <= EXAMPLE_REL:
+        raise AssertionError(f"train_100m losses {losses[:len(ref)]} "
+                             f"against the CPU run's {ref}: {err}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_100m did not learn: {losses[0]} -> "
+                             f"{losses[-1]}")
+    (mgr,) = managers
+    kept = mgr.steps()
+    saved = [s for s in range(1, args.steps) if s % T100.CKPT_EVERY == 0]
+    if kept != saved[-T100.CKPT_KEEP:] or not kept:
+        raise AssertionError(f"train_100m kept checkpoints {kept}")
+    for step in kept:
+        at, tree = ckpt.load(mgr._path(step), copies[step])
+        if at != step or not same_bits(tree, copies[step]):
+            raise AssertionError(f"checkpoint {step} does not restore the "
+                                 f"tree of its step")
+    at, tree = mgr.restore_latest(copies[kept[-1]])
+    if at != kept[-1] or not same_bits(tree, copies[at]):
+        raise AssertionError("restore_latest does not give the newest tree")
+    layers = args.layers
+    expect = {k: 0 for k in counts}
+    expect.update(flash_fwd=layers * args.steps, flash_bwd=layers * args.steps)
+    if counts != expect:
+        raise AssertionError(f"train_100m launches {counts}, expected "
+                             f"{expect}")
+    last = max(out["tokens_per_s"])
+    return {"args": argv, "params": out["params"], "steps": args.steps,
+            "seconds": out["seconds"],
+            "tokens_per_s": out["tokens_per_s"][last],
+            "peak_memory_gb": out["peak_memory_gb"],
+            "losses_head": losses[:EXAMPLE_CPU_STEPS], "cpu_losses": ref,
+            "loss_rel_err": err, "final_loss": losses[-1],
+            "kept_steps": kept, "launches": counts,
+            "lines": text.getvalue().splitlines()}
+
+
+def same_bits(a, b) -> bool:
+    """Two trees of tensors with the same paths, dtypes and bytes."""
+    from torch.utils._pytree import tree_flatten_with_path
+
+    fa, fb = tree_flatten_with_path(a)[0], tree_flatten_with_path(b)[0]
+    return [p for p, _ in fa] == [p for p, _ in fb] and all(
+        x.dtype == y.dtype and torch.equal(x.reshape(-1).view(torch.uint8),
+                                           y.reshape(-1).view(torch.uint8))
+        for (_, x), (_, y) in zip(fa, fb))
+
+
+def examples(dev, seed: int, refs: CpuRefs) -> dict:
+    """The three example twins on the card (``repro_torch.examples``),
+    each against its CPU run."""
+    t = time.perf_counter()
+    out = {"quickstart": example_quickstart(dev, seed, refs),
+           "serve_agents": example_serve_agents(dev, seed, refs),
+           "train_100m": example_train_100m(dev, seed, refs)}
+    return dict(out, seconds=time.perf_counter() - t)
+
+
 def _host_gate(snap: dict, dom: list, step: int) -> list:
     """The stock programs' gate from the snapshot: no frozen or
     throttled ancestor within the 4-deep chain."""
@@ -3245,13 +3588,15 @@ def main() -> None:
                     default="lint,kernels,engine_parity,engine_full,conformance,"
                             "replay,serve_full,families_full,control_full,"
                             "train_parity,train_full,prefill_parity,"
-                            "prefill_full,frontends_full,mla_full,dryrun",
+                            "prefill_full,frontends_full,mla_full,examples,"
+                            "dryrun",
                     help="comma-separated phases to run, of lint, "
                          "kernels, "
                          "engine_parity, engine_full, conformance, replay, "
                          "serve_full, families_full, control_full, "
                          "train_parity, train_full, prefill_parity, "
                          "prefill_full, frontends_full, mla_full, "
+                         "examples, "
                          "dryrun (after the phases it compares), and "
                          "profile, "
                          "train_profile and prefill_profile (not in the "
@@ -3259,7 +3604,7 @@ def main() -> None:
                          "when lint, kernels, engine_full, conformance, "
                          "serve_full, families_full, control_full, "
                          "train_full, prefill_full, frontends_full, "
-                         "mla_full and dryrun ran")
+                         "mla_full, examples and dryrun ran")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -3381,7 +3726,7 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
             errs = [e[k] for case, e in cases.items()
                     if case.startswith(("train", "ragged", "cross",
                                         "head", "group", "d160", "hubert",
-                                        "mla"))
+                                        "mla", "example"))
                     for k in parts if k in e]
             pas = name.split("_")[1]
             rows[name] = dict(
@@ -3394,7 +3739,13 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
                     case: {k: v for k, v in t.items() if k.startswith(pas)}
                     for case, t in fla["family_times"].items()},
                     "hubert_d80_full": {k: v for k, v in hubert.items()
-                                        if k.startswith(pas)}})
+                                        if k.startswith(pas)},
+                    "example_shapes": {
+                        case: dict({k: v for k, v in t.items()
+                                    if k.startswith(pas)},
+                                   library_ms=t["library"][f"{pas}_ms"],
+                                   library_backend=t["library"]["backend"])
+                        for case, t in fla["times_by_example"].items()}})
         rows["flash_fwd"]["extra"]["pixtral_d160"] = \
             front["times"]["pixtral_d160"]
         for name in ("flash_fwd", "flash_bwd"):
@@ -3464,6 +3815,10 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
     if "mla_full" in phases:
         mla_run = mla_full(dev, seed)
         emit({"phase": "mla_full", "card": card, **mla_run})
+    ex = None
+    if "examples" in phases:
+        ex = examples(dev, seed, refs)
+        emit({"phase": "examples", "card": card, **ex})
     dry = None
     if "dryrun" in phases:
         by_phase = {"train_full": train, "prefill_full": prefill,
@@ -3488,7 +3843,7 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
     if lint is None or rows is None or full is None or train is None \
             or prefill is None \
             or conf is None or served is None or ctrl is None or fams is None \
-            or fronts is None or mla_run is None or dry is None:
+            or fronts is None or mla_run is None or ex is None or dry is None:
         return
     launches = dict(full["launches"], **train["launches"],
                     ssd_scan=prefill["launches_per_prefill"]["ssd_scan"])
@@ -3510,7 +3865,11 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
                   for k in ("hubert_train_full", "pixtral_forward_full",
                             "pixtral_train_full")},
                **{f"mla_full_{k}": mla_run[k]["launches"]
-                  for k in ("mla_parity", "deepseek_forward_full")}}
+                  for k in ("mla_parity", "deepseek_forward_full")},
+               "examples_quickstart": ex["quickstart"]["launches"],
+               **{f"examples_serve_agents_{k}": m["launches"]
+                  for k, m in ex["serve_agents"]["modes"].items()},
+               "examples_train_100m": ex["train_100m"]["launches"]}
     # the forward's errors include those at the prefill shape
     fwd = rows["flash_fwd"]
     for e in prefill["flash_fwd_prefill_errs"].values():

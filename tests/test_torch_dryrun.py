@@ -132,6 +132,27 @@ def test_flash_cost_gives_perf_bounds(name, shape, causal, backward, want):
     assert same_digits(ms, want) and by == "operations", (ms, want)
 
 
+# the examples' f32 training shapes (chip_smoke.py FLASH_EXAMPLES): d 32
+# is bound by its bytes, d 64 by its operations at the f32 peak
+FLASH_F32_BOUNDS = [
+    ("fwd_quickstart", (4, 64, 4, 2, 32), False, "0.0001186", "bytes"),
+    ("bwd_quickstart", (4, 64, 4, 2, 32), True, "0.0002360", "bytes"),
+    ("fwd_train100m", (8, 256, 8, 4, 64), False, "0.008013", "operations"),
+    ("bwd_train100m", (8, 256, 8, 4, 64), True, "0.02003", "operations"),
+]
+
+
+@pytest.mark.parametrize("name,shape,backward,want,by", FLASH_F32_BOUNDS,
+                         ids=[c[0] for c in FLASH_F32_BOUNDS])
+def test_flash_f32_cost_gives_perf_bounds(name, shape, backward, want, by):
+    B, S, H, hkv, d = shape
+    f32 = dict(device="meta", dtype=torch.float32)
+    q, k, v = (torch.empty(B, S, h, d, **f32) for h in (H, hkv, hkv))
+    ms, got_by = timing.cost_bound_ms(FA.cost(q, k, v, causal=True,
+                                              backward=backward))
+    assert same_digits(ms, want) and got_by == by, (ms, want, got_by)
+
+
 def test_ssd_cost_gives_perf_bound():
     b, s, nh, dh, N = 1, 32768, 8, 1024, 16
     f32 = dict(device="meta", dtype=torch.float32)
