@@ -122,9 +122,9 @@ Phases, one JSON line each on standard output:
                  tokens/s.
   families_full  ``launch.serve`` as serve_full on every other family at
                  full width (bf16, seeded random weights): minicpm-2b,
-                 xlstm-350m and pixtral-12b (d 160) at full depth,
-                 phi3-medium-14b and internlm2-20b cut to 8 layers (the
-                 script's time), llama4-maverick to 2 layers, Jamba to 8
+                 xlstm-350m, pixtral-12b (d 160), phi3-medium-14b and
+                 internlm2-20b cut to 8 layers (the script's time),
+                 llama4-maverick to 2 layers, Jamba to 8
                  and deepseek-v2-236b to 4 (the cuts printed with their
                  reason); each report equal
                  to the same config's reduced CPU run, the gate read on
@@ -137,7 +137,8 @@ Phases, one JSON line each on standard output:
                  the granted slot's attention leaves change in the
                  written row only, and a frozen-then-thawed slot's state
                  comes back bit-identical on the card.
-  control_full   the full-width llama3.2-3b serving through the other
+  control_full   llama3.2-3b at full width cut to 4 layers (the
+                 script's time) serving through the other
                  control planes, each against the same run at reduced
                  width on the CPU: ``backend="async"`` on serve_full's
                  sessions (the device backend's report, lifecycle in
@@ -220,6 +221,31 @@ Phases, one JSON line each on standard output:
                  bit for bit to a copy of its step's tree, 8 flash
                  forward and backward launches a step; tokens/s, peak
                  memory, seconds.
+  evaluation     the evaluation twins (``repro_torch.evaluation``) on the
+                 card, each against the port's CPU run of the same call:
+                 ``multitenant_isolation`` at its defaults (8 tenants, 400
+                 steps, a pool of 256, 8 shards): every tenant row and
+                 the victims' denial rate equal, one charge launch a step
+                 in each configuration, the fairness assertions holding
+                 with shares and P99 gaps equal; ``engine_overhead
+                 --quick --backend async --full`` (llama3.2-3b, 28
+                 layers, bf16; CI's smoke): its three gates on the card
+                 (async < 1.25, core < 2.0, charge kernel P50 <= plain
+                 P50), each engine run's report equal, 28 decode launches
+                 a step and a charge launch a step in inkernel mode; the
+                 suite ``evaluation.run`` once at full width on the same
+                 weights (its engine_overhead cut to 200 timed steps a
+                 run and its gate to 60 calls a side for the script's
+                 time, printed): engine_fig8's reports equal in all
+                 three modes (launches as serve_agents'),
+                 engine_overhead's reports equal,
+                 throttle_precision's mechanism reopening at
+                 exactly 2000 ms (its wall clock printed), the host
+                 sections (characterization, mismatch and the replay
+                 drivers) and the fairness shares equal, and
+                 roofline_table over the six dry-run records of the
+                 dryrun phase (written under ``build/``), each row's
+                 GiB/dev and terms its record's.
   dryrun         each full-width run above that measures a peak
                  (train_full, hubert's and pixtral's training, the Jamba
                  prefill, pixtral's and deepseek's forwards) against
@@ -241,11 +267,11 @@ Phases, one JSON line each on standard output:
                  prefills of the prefill_full configuration.
 
 The CPU engine runs that engine_parity, engine_full, serve_full,
-families_full and control_full compare with, the examples' CPU runs and
-the dry runs (``cpu_reference``), run in worker processes started with
-the script (``CpuRefs``), while the card works; the script stops them
-before it exits.  Every ``bound_ms`` of the kernel table comes from the kernels'
-own ``cost`` functions.
+families_full and control_full compare with, the examples' and the
+evaluation twins' CPU runs and the dry runs (``cpu_reference``), run in
+worker processes started with the script (``CpuRefs``), while the card
+works; the script stops them before it exits.  Every ``bound_ms`` of the
+kernel table comes from the kernels' own ``cost`` functions.
 
 Then the kernel table (one JSON object), the card's ``name, power.limit``
 as nvidia-smi prints them, and the result line.  Any failed check raises,
@@ -1532,6 +1558,8 @@ def cpu_reference(key: str, seed: int) -> dict:
     ``family:<arch>`` (families_full's); ``dryrun:<run>``, the dry run
     of a ``DRYRUN_RUNS`` run (``dry_run``); ``example:<name>``, the
     examples phase's CPU run of an example twin (``example_reference``);
+    ``evaluation:<name>``, the evaluation phase's CPU run of a twin
+    (``evaluation_reference``);
     for ``parity:<arch>:<mode>``,
     engine_parity's CPU run of the reduced ``arch`` in a
     ``PARITY_MODES`` mode (``parity_run``: report, token streams,
@@ -1548,6 +1576,9 @@ def cpu_reference(key: str, seed: int) -> dict:
     if key.startswith("example:"):
         with contextlib.redirect_stdout(io.StringIO()):
             return example_reference(key.split(":", 1)[1], seed)
+    if key.startswith("evaluation:"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return evaluation_reference(key.split(":", 1)[1])
     with contextlib.redirect_stdout(io.StringIO()):
         if key.startswith("parity:"):
             _, arch, mode = key.split(":")
@@ -1607,12 +1638,18 @@ class CpuRefs:
                             ("examples",
                              [f"example:{n}" for n in ("train_100m",
                                                        "quickstart",
-                                                       "serve_agents")])):
+                                                       "serve_agents")]),
+                            ("evaluation",
+                             [f"evaluation:{n}" for n in ("suite",
+                                                          "multitenant",
+                                                          "engine_overhead")]
+                             + [f"dryrun:{n}" for n in DRYRUN_RUNS])):
             if phase in phases:
                 keys += [k for k in want if k not in keys]
         if "dryrun" in phases:
-            keys += [f"dryrun:{n}" for n, (p, *_) in DRYRUN_RUNS.items()
-                     if p in phases]
+            keys += [k for k in (f"dryrun:{n}" for n, (p, *_)
+                                 in DRYRUN_RUNS.items() if p in phases)
+                     if k not in keys]
         self.pool = multiprocessing.get_context("spawn").Pool(
             min(self.WORKERS, len(keys)), initializer=_cpu_worker) \
             if keys else None
@@ -2975,24 +3012,26 @@ def serve_full(dev, seed: int, refs: CpuRefs) -> dict:
 # each family's depth on one card (0: the config's own) and why it is cut
 # the time the whole script may take (1,200 s with the build; 854-1,124
 # s on one H100 80GB HBM3 at 700 W before the examples phase joined)
-# cuts the two deepest dense families:
-# their reports follow session phases, not depth, and the decode kernel
-# runs at their heads at any depth
-TIME_CUT = ("{} -> 8 layers: the examples phase's ~70-95 s inside the "
-            "script's 1,200 s on one card; the host-bound step takes "
-            "~1.1-1.7 ms a layer, and the report does not follow depth")
+# cuts the dense families and xLSTM to 8 layers: their reports follow
+# session phases, not depth, and the decode kernel runs at their heads
+# at any depth
+TIME_CUT = ("{} -> 8 layers: the examples and evaluation phases' ~270 s "
+            "inside the script's 1,200 s on one card (whole scripts of "
+            "1,016.6-1,424.8 s with the evaluation phase before this cut); "
+            "the host-bound step takes ~1.1-1.7 ms a layer, and the report "
+            "does not follow depth")
 FAMILIES_FULL = {
     "phi3-medium-14b": (8, TIME_CUT.format(40)),
-    "minicpm-2b": (0, None),
+    "minicpm-2b": (8, TIME_CUT.format(40)),
     "internlm2-20b": (8, TIME_CUT.format(48)),
-    "pixtral-12b": (0, None),
+    "pixtral-12b": (8, TIME_CUT.format(40)),
     "llama4-maverick-400b-a17b": (
         2, "48 -> 2 layers: one dense + MoE group; the 128-expert MoE "
            "layer alone holds ~16.1 B parameters (~32 GB in bf16)"),
     "jamba-v0.1-52b": (
         8, "32 -> 8 layers: one 8-layer group, as prefill_full; the "
            "51.4 B parameters are ~103 GB in bf16"),
-    "xlstm-350m": (0, None),
+    "xlstm-350m": (8, TIME_CUT.format(24)),
     "deepseek-v2-236b": (
         4, "60 -> 4 layers: each MLA + 160-expert MoE layer holds ~3.9 B "
            "parameters; 4 layers and the embeddings are 16.94 B (~34 GB in "
@@ -3174,6 +3213,12 @@ def _launches_as_steps(counts: dict, steps: int, cfg, what: str) -> None:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 
 
+CONTROL_LAYERS = 4
+CONTROL_CUT = ("28 -> 4 layers for the script's 1,200 s on one card, as "
+               "families_full's cuts (the sharded run alone took ~106 s at "
+               "28); the control planes' reports do not follow depth")
+
+
 def control_full(dev, seed: int, refs: CpuRefs,
                  served: dict = None) -> dict:
     """The control planes beside the device table at full width
@@ -3193,9 +3238,10 @@ def control_full(dev, seed: int, refs: CpuRefs,
                 device group): the report equal to the reduced CPU
                 sharded run's.
 
-    Every run: one charge launch a step for all its shards, 28 decode
-    launches a step, nothing else; step p50/p95 (host clock ending in a
-    synchronize), printed and not asserted."""
+    Every run at llama's full width cut to ``CONTROL_LAYERS`` layers
+    (``CONTROL_CUT``): one charge launch a step for all its shards, a
+    decode launch a layer a step, nothing else; step p50/p95 (host clock
+    ending in a synchronize), printed and not asserted."""
     from repro_torch.configs import get_config
     from repro_torch.core import domains as D
     from repro_torch.core.daemon import AsyncDaemonBackend
@@ -3205,8 +3251,9 @@ def control_full(dev, seed: int, refs: CpuRefs,
     from repro_torch.serving import engine as E
     from repro_torch.serving import session as S
 
-    args = SV.parser().parse_args(SERVE_FULL + ["--seed", str(seed)])
-    out = {}
+    args = SV.parser().parse_args(SERVE_FULL + [
+        "--seed", str(seed), "--layers", str(CONTROL_LAYERS)])
+    out = {"cut": CONTROL_CUT}
     device_ref = refs.get("serve")
     if served is not None and served != device_ref:
         raise AssertionError("serve_full's report differs from its reduced "
@@ -3244,7 +3291,8 @@ def control_full(dev, seed: int, refs: CpuRefs,
                      "launches": counts, "report": report}
         del eng
 
-    cfg = get_config("llama3.2-3b")
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              n_layers=CONTROL_LAYERS)
     ecfg = E.EngineConfig(**FULL_ENGINE, backend="sharded", n_shards=2)
     ref = refs.get("sharded")
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
@@ -3563,6 +3611,360 @@ def examples(dev, seed: int, refs: CpuRefs) -> dict:
     return dict(out, seconds=time.perf_counter() - t)
 
 
+# -------------------------------------------------------------- evaluation
+
+EVAL_DRYRUN = ROOT / "build" / "evaluation_dryrun"
+EVAL_OVERHEAD = dict(steps=60, quick=True, backend="async")   # CI's smoke
+EVAL_WARM = 5                # engine_overhead's untimed steps a run
+SUITE_OVERHEAD_STEPS = 200   # the suite's engine_overhead, cut from 400
+SUITE_GATE_ITERS = 60        # its fused-kernel gate's calls, cut from 300
+SUITE_CUT = ("the suite's engine_overhead 400 -> 200 timed steps a run and "
+             "its fused-kernel gate (no assert in the suite) 300 -> 60 "
+             "calls a side: whole scripts of 1,016.6-1,424.8 s with 400 and "
+             "300 (the plain charge ~150 ms a call)")
+OVERHEAD_RUNS = ("off", "core", "full", "async")   # engine_overhead's runs
+FIG8_RUNS = ("nolimit", "userspace", "agentcgroup")
+HOST_SECTIONS = ("characterization", "mismatch", "fig8_replay",
+                 "escalation_waste", "adaptive_pressure")
+HOST_HEADERS = ("characterization", "mismatch analysis", "Fig 8 trace",
+                "Semantic OOM", "Pressure-adaptive", "live-engine")
+
+
+@contextlib.contextmanager
+def recorded_engines(mod, runs: list, count: bool = True):
+    """Every engine that module ``mod`` builds, recorded when it first
+    reports (engine_fig8) or closes (engine_overhead): its mode, backend,
+    steps and report and, with ``count``, the kernel launches since it
+    was built (the counts set to 0 there)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    base = mod.Engine
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self._recorded = False
+            if count:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+
+        def report(self):
+            r = super().report()
+            if not self._recorded:
+                self._recorded = True
+                runs.append({"mode": self.ecfg.mode,
+                             "backend": self.ecfg.backend,
+                             "steps": self.step_no, "report": r,
+                             "launches": launch_counts() if count else None})
+            return r
+
+        def close(self):
+            self.report()
+            super().close()
+
+    mod.Engine = Recorded
+    try:
+        yield runs
+    finally:
+        mod.Engine = base
+
+
+@contextlib.contextmanager
+def replaced(mod, name: str, fn):
+    """``mod.name`` is ``fn`` inside the block."""
+    inner = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        yield inner
+    finally:
+        setattr(mod, name, inner)
+
+
+@contextlib.contextmanager
+def suite_overhead_cut(EO):
+    """The suite's ``engine_overhead.run`` at ``SUITE_OVERHEAD_STEPS``
+    timed steps a run and its gate at ``SUITE_GATE_ITERS`` calls
+    (``SUITE_CUT``)."""
+    run, gate = EO.run, EO.fused_kernel_gate
+    with replaced(EO, "run", lambda **kw: run(
+            **dict(kw, steps=SUITE_OVERHEAD_STEPS))), \
+            replaced(EO, "fused_kernel_gate", lambda quick, **kw: gate(
+                quick, **dict(kw, iters=SUITE_GATE_ITERS))):
+        yield
+
+
+def no_gate(quick, iters=300, **kw) -> dict:
+    """engine_overhead's fused-kernel gate left out of a CPU reference
+    run (on CPU tensors both of its sides are the plain charge)."""
+    return {}
+
+
+def evaluation_reference(name: str):
+    """The port's CPU run an evaluation check on the card is held to:
+    ``multitenant`` (``multitenant_isolation.main`` at its defaults),
+    ``engine_overhead`` (the smoke's engine runs) and ``suite`` (the
+    suite at reduced width: its results, printed text and engine runs)."""
+    from repro_torch.evaluation import engine_fig8 as EF8
+    from repro_torch.evaluation import engine_overhead as EO
+    from repro_torch.evaluation import multitenant_isolation as MT
+    from repro_torch.evaluation import run as RUN
+
+    if name == "multitenant":
+        return MT.main(["--device", "cpu"])
+    fig8, overhead = [], []
+    with replaced(EO, "fused_kernel_gate", no_gate), \
+            recorded_engines(EO, overhead, count=False), \
+            recorded_engines(EF8, fig8, count=False):
+        if name == "engine_overhead":
+            kw = dict(EVAL_OVERHEAD, quick=False)   # the card holds gates
+            return {"out": EO.run(**kw, device="cpu"), "runs": overhead}
+        text = io.StringIO()
+        with suite_overhead_cut(EO), contextlib.redirect_stdout(text):
+            out = RUN.run(device="cpu",
+                          dryrun_dir=str(ROOT / "build" / "no_dryrun"))
+    return {"out": out, "text": text.getvalue(), "fig8": fig8,
+            "overhead": overhead}
+
+
+def same_json(a, b) -> bool:
+    """Equal as JSON text (tuples as lists, NaN as NaN, numpy scalars by
+    value)."""
+    def text(x):
+        return json.dumps(x, sort_keys=True, default=lambda v: v.item()
+                          if hasattr(v, "item") else str(v))
+    return text(a) == text(b)
+
+
+def sections(text: str) -> dict:
+    """Printed output by ``== header`` line."""
+    return {part.split("\n", 1)[0]: part
+            for part in ("\n" + text).split("\n== ")[1:]}
+
+
+def check_engine_runs(what: str, names: tuple, got: list, want: list,
+                      layers: int) -> dict:
+    """Each card run (``names``, in order) with its report equal to the
+    CPU run's, a decode launch a layer a step and a charge launch a step
+    in inkernel mode."""
+    if len(got) != len(names) or [r["report"] for r in got] != \
+            [r["report"] for r in want]:
+        raise AssertionError(f"{what}: reports differ from the reduced CPU "
+                             f"run:\n{got}\n{want}")
+    out = {}
+    for name, r in zip(names, got):
+        steps, counts = r["steps"], r["launches"]
+        expect = {k: 0 for k in counts}
+        expect.update(decode_attention=layers * steps,
+                      fused_charge_batch=steps if r["mode"] == "inkernel"
+                      else 0)
+        if counts != expect:
+            raise AssertionError(f"{what} {r['mode']}/{r['backend']}: "
+                                 f"launches {counts}, expected {expect}")
+        out[name] = {"mode": r["mode"], "backend": r["backend"],
+                     "steps": steps, "launches": counts}
+    return out
+
+
+def roofline_rows(text: str, records: dict) -> dict:
+    """roofline_table's rows against their records: GiB/dev, the three
+    terms, the dominant one, the useful ratio and the roofline fraction."""
+    from repro_torch.analysis.roofline import fmt_seconds
+
+    rows = {}
+    for line in text.splitlines()[1:]:
+        f = line.split()
+        rows[(f[0], f[1])] = f[2:]
+    if len(rows) != len(records):
+        raise AssertionError(f"roofline_table rows {list(rows)}, records "
+                             f"{list(records)}")
+    out = {}
+    for name, rec in records.items():
+        r, mem = rec["roofline"], rec["memory"]
+        want = ["yes" if mem["fits_hbm"] else "NO",
+                f"{mem['per_device_bytes'] / 2**30:.1f}",
+                fmt_seconds(r["compute_s"]), fmt_seconds(r["memory_s"]),
+                fmt_seconds(r["collective_s"]), r["dominant"][:-2],
+                f"{r['useful_flop_ratio']:.2f}",
+                f"{r['roofline_fraction']:.3f}"]
+        got = rows.get((rec["arch"], rec["shape"]))
+        if got != want:
+            raise AssertionError(f"roofline_table row of {name}: {got}, "
+                                 f"its record {want}")
+        out[name] = got
+    return out
+
+
+def eval_multitenant(dev, refs: CpuRefs) -> dict:
+    """``multitenant_isolation.main([])`` on the card against the CPU run:
+    tenant rows, victims' denial rates and fairness shares and gaps
+    equal, one charge launch a step in each configuration."""
+    from repro_torch.evaluation import multitenant_isolation as MT
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    counts = {}
+
+    def counted(kind, *a, **kw):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = inner(kind, *a, **kw)
+        counts[kind] = launch_counts()
+        return res
+
+    t = time.perf_counter()
+    text = io.StringIO()
+    with replaced(MT, "run_config", counted) as inner, \
+            contextlib.redirect_stdout(text):
+        res = MT.main([])
+    seconds = time.perf_counter() - t
+    ref = refs.get("evaluation:multitenant")
+    steps = MT.parser().parse_args([]).steps
+    for kind in ("shared", "sharded"):
+        for key in ("tenants", "victim_denial_rate"):
+            if res[kind][key] != ref[kind][key]:
+                raise AssertionError(f"multitenant {kind} {key}: "
+                                     f"{res[kind][key]} on the card, "
+                                     f"{ref[kind][key]} on the CPU")
+        expect = {k: 0 for k in counts[kind]}
+        expect["fused_charge_batch"] = steps
+        if counts[kind] != expect:
+            raise AssertionError(f"multitenant {kind}: launches "
+                                 f"{counts[kind]}, expected {expect}")
+    fair = {label: {k: res["fairness"][label][k] for k in ("share",
+                                                           "p99_gap")}
+            for label in ("weighted", "uniform")}
+    if fair != {label: {k: ref["fairness"][label][k]
+                        for k in ("share", "p99_gap")}
+                for label in fair}:
+        raise AssertionError(f"fairness on the card {fair}, on the CPU "
+                             f"{ref['fairness']}")
+    return {"seconds": seconds, "launches": counts,
+            "victim_denial_rate": {k: res[k]["victim_denial_rate"]
+                                   for k in ("shared", "sharded")},
+            "charge_steps_per_s": {k: res[k]["steps_per_s"]
+                                   for k in ("shared", "sharded")},
+            "fairness": fair,
+            "sched_steps_per_s": {k: res["fairness"][k]["steps_per_s"]
+                                  for k in fair},
+            "lines": text.getvalue().splitlines()}
+
+
+def eval_overhead(dev, params, layers: int, refs: CpuRefs) -> dict:
+    """CI's smoke, ``engine_overhead --quick --backend async``, at full
+    width on the card: its three gates hold (they raise), every engine
+    run's report equals the reduced CPU run's."""
+    from repro_torch.evaluation import engine_overhead as EO
+
+    runs = []
+    t = time.perf_counter()
+    text = io.StringIO()
+    with recorded_engines(EO, runs), contextlib.redirect_stdout(text):
+        res = EO.run(**EVAL_OVERHEAD, device=dev, full=True, params=params)
+    seconds = time.perf_counter() - t
+    ref = refs.get("evaluation:engine_overhead")
+    engines = check_engine_runs("engine_overhead", OVERHEAD_RUNS, runs,
+                                ref["runs"], layers)
+    if any(r["steps"] != EVAL_WARM + EVAL_OVERHEAD["steps"] for r in runs):
+        raise AssertionError(f"engine_overhead steps {runs}")
+    return {"seconds": seconds, "args": EVAL_OVERHEAD, "result": res,
+            "ratio_core": res["p50_core"] / res["p50_off"],
+            "ratio_full": res["p50_full"] / res["p50_off"],
+            "ratio_async": res["p50_async"] / res["p50_core"],
+            "engines": engines, "lines": text.getvalue().splitlines()}
+
+
+def eval_suite(dev, params, layers: int, refs: CpuRefs) -> dict:
+    """The suite ``evaluation.run`` at full width on the card against its
+    reduced CPU run (see the module docstring)."""
+    import shutil
+
+    from repro_torch.evaluation import engine_fig8 as EF8
+    from repro_torch.evaluation import engine_overhead as EO
+    from repro_torch.evaluation import run as RUN
+    from repro_torch.evaluation import throttle_precision as TP
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    shutil.rmtree(EVAL_DRYRUN, ignore_errors=True)
+    EVAL_DRYRUN.mkdir(parents=True)
+    records = {}
+    for name in DRYRUN_RUNS:
+        records[name] = refs.get(f"dryrun:{name}")
+        (EVAL_DRYRUN / f"{name}.json").write_text(json.dumps(records[name]))
+    throttle = {}
+
+    def counted(*a, **kw):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = inner(*a, **kw)
+        throttle.update(launch_counts())
+        return res
+
+    fig8, overhead = [], []
+    t = time.perf_counter()
+    text = io.StringIO()
+    with recorded_engines(EF8, fig8), recorded_engines(EO, overhead), \
+            replaced(TP, "run", counted) as inner, suite_overhead_cut(EO), \
+            contextlib.redirect_stdout(text):
+        out = RUN.run(device=dev, full=True, params=params,
+                      dryrun_dir=str(EVAL_DRYRUN))
+    seconds = time.perf_counter() - t
+    ref = refs.get("evaluation:suite")
+    engines = {"engine_fig8": check_engine_runs(
+                   "suite engine_fig8", FIG8_RUNS, fig8, ref["fig8"], layers),
+               "engine_overhead": check_engine_runs(
+                   "suite engine_overhead", OVERHEAD_RUNS[:3], overhead,
+                   ref["overhead"], layers)}
+    if out["engine_fig8"] != ref["out"]["engine_fig8"]:
+        raise AssertionError("suite engine_fig8 differs from the CPU run")
+    tp = out["throttle_precision"]
+    if (tp["mechanism_ms"], tp["mechanism_err"]) != (2000.0, 0.0):
+        raise AssertionError(f"throttle mechanism {tp}")
+    expect = {k: 0 for k in throttle}
+    expect.update(fused_charge_batch=2, fused_slot_gate=2 * 200 + 1)
+    if throttle != expect:
+        raise AssertionError(f"throttle launches {throttle}, expected "
+                             f"{expect}")
+    for name in HOST_SECTIONS:
+        if not same_json(out[name], ref["out"][name]):
+            raise AssertionError(f"suite {name} differs from the CPU run")
+    got, want = sections(text.getvalue()), sections(ref["text"])
+    for head in [h for h in want if h.startswith(HOST_HEADERS)]:
+        if got.get(head) != want[head]:
+            raise AssertionError(f"suite section {head!r} differs from the "
+                                 f"CPU run:\n{got.get(head)}\n{want[head]}")
+    fair = {k: {f: out["multitenant_isolation"][k][f]
+                for f in ("share", "p99_gap")} for k in ("weighted",
+                                                         "uniform")}
+    if fair != {k: {f: ref["out"]["multitenant_isolation"][k][f]
+                    for f in ("share", "p99_gap")} for k in fair}:
+        raise AssertionError(f"suite fairness {fair} differs from the CPU")
+    rows = roofline_rows(out["roofline_table"], records)
+    keep = ("live-engine", "in-step", "fused", "weighted", "throttle",
+            "roofline")
+    return {"seconds": seconds, "cut": SUITE_CUT, "engines": engines,
+            "engine_overhead": out["engine_overhead"],
+            "throttle_precision": tp, "throttle_launches": throttle,
+            "fairness": fair, "roofline_rows": rows,
+            "lines": [line for head, block in got.items()
+                      if head.startswith(keep)
+                      for line in ("== " + block).splitlines()]}
+
+
+def evaluation(dev, seed: int, refs: CpuRefs) -> dict:
+    """The evaluation twins on the card (``repro_torch.evaluation``),
+    each against the port's CPU run of the same call."""
+    from repro_torch.evaluation import engine_fig8 as EF8
+
+    t = time.perf_counter()
+    cfg, params = EF8.model(dev, full=True)
+    model = {"arch": EF8.ARCH, "layers": cfg.n_layers,
+             "d_model": cfg.d_model, "dtype": cfg.dtype}
+    out = {"model": model, "multitenant": eval_multitenant(dev, refs),
+           "engine_overhead": eval_overhead(dev, params, cfg.n_layers,
+                                            refs),
+           "suite": eval_suite(dev, params, cfg.n_layers, refs)}
+    return dict(out, seconds=time.perf_counter() - t)
+
+
 def _host_gate(snap: dict, dom: list, step: int) -> list:
     """The stock programs' gate from the snapshot: no frozen or
     throttled ancestor within the 4-deep chain."""
@@ -3589,14 +3991,14 @@ def main() -> None:
                             "replay,serve_full,families_full,control_full,"
                             "train_parity,train_full,prefill_parity,"
                             "prefill_full,frontends_full,mla_full,examples,"
-                            "dryrun",
+                            "evaluation,dryrun",
                     help="comma-separated phases to run, of lint, "
                          "kernels, "
                          "engine_parity, engine_full, conformance, replay, "
                          "serve_full, families_full, control_full, "
                          "train_parity, train_full, prefill_parity, "
                          "prefill_full, frontends_full, mla_full, "
-                         "examples, "
+                         "examples, evaluation, "
                          "dryrun (after the phases it compares), and "
                          "profile, "
                          "train_profile and prefill_profile (not in the "
@@ -3604,7 +4006,8 @@ def main() -> None:
                          "when lint, kernels, engine_full, conformance, "
                          "serve_full, families_full, control_full, "
                          "train_full, prefill_full, frontends_full, "
-                         "mla_full, examples and dryrun ran")
+                         "mla_full, examples, evaluation and dryrun "
+                         "ran")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -3819,6 +4222,10 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
     if "examples" in phases:
         ex = examples(dev, seed, refs)
         emit({"phase": "examples", "card": card, **ex})
+    ev = None
+    if "evaluation" in phases:
+        ev = evaluation(dev, seed, refs)
+        emit({"phase": "evaluation", "card": card, **ev})
     dry = None
     if "dryrun" in phases:
         by_phase = {"train_full": train, "prefill_full": prefill,
@@ -3843,7 +4250,8 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
     if lint is None or rows is None or full is None or train is None \
             or prefill is None \
             or conf is None or served is None or ctrl is None or fams is None \
-            or fronts is None or mla_run is None or ex is None or dry is None:
+            or fronts is None or mla_run is None or ex is None or dry is None \
+            or ev is None:
         return
     launches = dict(full["launches"], **train["launches"],
                     ssd_scan=prefill["launches_per_prefill"]["ssd_scan"])
@@ -3869,7 +4277,16 @@ def run_phases(phases: list, seed: int, refs: CpuRefs) -> None:
                "examples_quickstart": ex["quickstart"]["launches"],
                **{f"examples_serve_agents_{k}": m["launches"]
                   for k, m in ex["serve_agents"]["modes"].items()},
-               "examples_train_100m": ex["train_100m"]["launches"]}
+               "examples_train_100m": ex["train_100m"]["launches"],
+               **{f"evaluation_multitenant_{k}": c
+                  for k, c in ev["multitenant"]["launches"].items()},
+               **{f"evaluation_engine_overhead_{k}": r["launches"]
+                  for k, r in ev["engine_overhead"]["engines"].items()},
+               **{f"evaluation_suite_{part}_{k}": r["launches"]
+                  for part, runs in ev["suite"]["engines"].items()
+                  for k, r in runs.items()},
+               "evaluation_suite_throttle_precision":
+                   ev["suite"]["throttle_launches"]}
     # the forward's errors include those at the prefill shape
     fwd = rows["flash_fwd"]
     for e in prefill["flash_fwd_prefill_errs"].values():
