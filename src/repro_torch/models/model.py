@@ -51,6 +51,7 @@ from repro_torch.models.attention import attn_decode, attn_forward
 from repro_torch.models.layers import (Leaf, cross_entropy, embed_tokens,
                                        lm_head, mlp, rmsnorm, rope_table)
 from repro_torch.perf import DEFAULT_PERF, PerfConfig
+from repro_torch.tracing import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -321,23 +322,28 @@ def decode_step(cfg: ModelConfig, params, state, tokens, lengths, *,
     _check_decodes(cfg)
     x = embed_tokens(cfg, params["embed"], tokens)[:, None]
     kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
+    # one profiler range a layer, named by its mixer (tracing.py)
+    names = [f"model.layer.{kind}" for kind in kinds]
     for layer in range(cfg.n_groups):
         for pos, gp in enumerate(params["groups"]):
-            p = _layer(gp, layer)
-            st = {k: t[layer] for k, t in state[pos].items()}
-            hn = rmsnorm(p["ln1"], x, cfg.norm_eps)
-            if kinds[pos] == "attn":
-                y = attn_decode(cfg, p["mixer"], hn, st, lengths)
-            else:
-                y, new = _MIXER_DECODE[kinds[pos]](cfg, p["mixer"], hn, st)
-                for k, t in new.items():
-                    if keep is None:
-                        st[k].copy_(t)
-                    else:
-                        torch.where(keep.view(-1, *(1,) * (t.dim() - 1)),
-                                    t.to(st[k].dtype), st[k], out=st[k])
-            x = x + y
-            x, _ = _apply_ffn(cfg, ffns[pos], p, x, perf)
+            with span(names[pos]):
+                p = _layer(gp, layer)
+                st = {k: t[layer] for k, t in state[pos].items()}
+                hn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+                if kinds[pos] == "attn":
+                    y = attn_decode(cfg, p["mixer"], hn, st, lengths)
+                else:
+                    y, new = _MIXER_DECODE[kinds[pos]](cfg, p["mixer"], hn,
+                                                       st)
+                    for k, t in new.items():
+                        if keep is None:
+                            st[k].copy_(t)
+                        else:
+                            torch.where(
+                                keep.view(-1, *(1,) * (t.dim() - 1)),
+                                t.to(st[k].dtype), st[k], out=st[k])
+                x = x + y
+                x, _ = _apply_ffn(cfg, ffns[pos], p, x, perf)
     x = rmsnorm(params["out_norm"], x, cfg.norm_eps)
     return lm_head(cfg, params["embed"], x)[:, 0], state
 

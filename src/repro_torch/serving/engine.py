@@ -29,12 +29,14 @@ state, and the step goes on.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import time
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import domains as D
 from repro_torch.core import pressure as PSI
@@ -50,6 +52,7 @@ from repro_torch.models import model as M
 from repro_torch.serving.kvcache import PageAccountant, SlotCaches
 from repro_torch.serving.sampling import sample
 from repro_torch.serving.session import Session, SState
+from repro_torch.tracing import span
 
 
 @dataclass(frozen=True)
@@ -96,7 +99,7 @@ class EngineConfig:
 
 @dataclass
 class EngineMetrics:
-    root_usage: list = field(default_factory=list)
+    peak_pool_pages: int = 0             # max root usage at a step's end
     overshoot_pages: int = 0             # max pages over pool budget
     session_overshoot_pages: int = 0     # max pages over any session high
     throttle_triggers: int = 0
@@ -165,6 +168,9 @@ class Engine:
         # place) so a backend rebuild replays the exact registry slots
         self._attachments: list = []
         self._last_snapshot: Optional[dict] = None
+        # the step clock's and the admission records' rows (tracing.py)
+        self.trace_id = tracing.engine_id()
+        self._submit_row: dict[str, int] = {}
 
     def _make_inner(self):
         e = self.ecfg
@@ -207,6 +213,8 @@ class Engine:
         if not self.cg.exists(tenant_path):
             self.cg.mkdir(tenant_path)
         self.waiting.append(session.sid)
+        self._submit_row[session.sid] = tracing.record_submit(
+            self.trace_id, session.priority, time.perf_counter_ns())
 
     def _try_admit(self) -> None:
         still = []
@@ -227,6 +235,8 @@ class Engine:
             self.slot_session[slot] = sid
             s.start()
             self.log.emit(self.step_no, Ev.ADMIT, s.domain)
+            tracing.record_admit(self._submit_row.pop(sid),
+                                 time.perf_counter_ns())
         self.waiting = still
 
     # --------------------------------------------------- tool-call domains
@@ -309,12 +319,14 @@ class Engine:
 
     def _daemon(self) -> None:
         e = self.ecfg
-        snap = self.cg.snapshot()
+        with span("engine.snapshot"):
+            snap = self.cg.snapshot()
         # last known-good step-boundary snapshot: the rebuild-from-
         # snapshot path (poisoned async daemon) restores from here
         self._last_snapshot = snap
         root_usage = int(snap["root_usage"])
-        self.metrics.root_usage.append(root_usage)
+        self.metrics.peak_pool_pages = max(self.metrics.peak_pool_pages,
+                                           root_usage)
         self.metrics.overshoot_pages = max(
             self.metrics.overshoot_pages, root_usage - self.pool_capacity)
         usage, high = snap["usage"], snap["high"]
@@ -331,7 +343,8 @@ class Engine:
                      and self.sessions[sid].priority == D.LOW]
             if cands:
                 victim = max(cands, key=lambda s: s.pages)
-                self._freeze(victim)
+                with span("engine.freeze"):
+                    self._freeze(victim)
         else:
             frozen = [s for s in self.sessions.values()
                       if s.state is SState.FROZEN]
@@ -339,7 +352,8 @@ class Engine:
                 cand = min(frozen, key=lambda s: s.pages)
                 if (root_usage + cand.pages
                         < e.thaw_threshold * self.pool_capacity):
-                    self._thaw(cand)
+                    with span("engine.thaw"):
+                        self._thaw(cand)
         if self._adaptive is not None:
             # closed loop: poll every step boundary for synchronous
             # backends; for the async daemon, once per applied epoch:
@@ -348,7 +362,8 @@ class Engine:
             if epoch is None or epoch != self._adaptive_epoch:
                 self._adaptive_epoch = epoch
                 self._adaptive.poll(float(self.step_no))
-        self._try_admit()
+        with span("engine.admit"):
+            self._try_admit()
 
     def _freeze(self, s: Session) -> None:
         if s.sid in self._lease:
@@ -488,15 +503,17 @@ class Engine:
             dom = torch.where(advance, dom, torch.full_like(dom, -1))
         if inkernel:
             # in-step enforcement: charge + gate inside the same step
-            ctrl, granted, stalled = view.charge(ctrl, dom, amt, self.step_no)
+            with span("engine.charge"):
+                ctrl, granted, stalled = view.charge(ctrl, dom, amt,
+                                                     self.step_no)
             gate = granted
         else:
             # user-space baseline: the (stale) host gate decides; usage is
             # charged after the fact, so bursts overshoot the budget
             gate = host_gate & (dom >= 0)
-            ctrl = view.account(ctrl, torch.where(gate, dom,
-                                                  torch.full_like(dom, -1)),
-                                amt)
+            with span("engine.charge"):
+                ctrl = view.account(ctrl, torch.where(
+                    gate, dom, torch.full_like(dom, -1)), amt)
             granted, stalled = gate, (dom >= 0) & ~gate
         # The gated merge, in place: the reference's where() over the
         # whole state, without copying it.  decode_step writes only row
@@ -511,64 +528,101 @@ class Engine:
                 if kind == "attn"]
         bidx = torch.arange(e.max_slots, device=self.device)
         rows = lengths.long()
-        saved = [{k: t[:, bidx, rows] for k, t in pos.items()}
-                 for pos in attn]
+        # one range an attention layer, so that a profiler names the
+        # gaps in each by it
+        saved = []
+        for pos in attn:
+            with span("engine.merge_save"):
+                saved.append({k: t[:, bidx, rows] for k, t in pos.items()})
         logits, _ = M.decode_step(self.cfg, self.params, state, tokens,
                                   lengths, keep=gate)
         for pos, old in zip(attn, saved):
-            for k, t in pos.items():
-                # a saved row is (group, slot, *rest) of a (group, slot,
-                # S_max, *rest) leaf
-                keep = gate.view(1, -1, *(1,) * (t.dim() - 3))
-                t[:, bidx, rows] = torch.where(keep, t[:, bidx, rows], old[k])
-        nxt = sample(logits, self.generator, temperature=e.temperature)
-        nxt = torch.where(gate, nxt, tokens)
+            with span("engine.merge_restore"):
+                for k, t in pos.items():
+                    # a saved row is (group, slot, *rest) of a (group,
+                    # slot, S_max, *rest) leaf
+                    keep = gate.view(1, -1, *(1,) * (t.dim() - 3))
+                    t[:, bidx, rows] = torch.where(keep, t[:, bidx, rows],
+                                                   old[k])
+        with span("engine.sample"):
+            nxt = sample(logits, self.generator, temperature=e.temperature)
+            nxt = torch.where(gate, nxt, tokens)
         return nxt, ctrl, granted, stalled
 
     def step(self) -> None:
         e = self.ecfg
+        # the step clock: a boundary before each phase and after the
+        # last, so that the phases tile the step (tracing.PHASES)
+        clock = time.perf_counter_ns
+        marks = [clock()]
         # epoch boundary: queued lifecycle ops (async backend) apply
         # here, before the step reads the control state, never between
         # the state read and the post-step commit.  A wedged/poisoned
         # daemon surfaces here as DaemonError; the engine rebuilds the
         # backend from the last step-boundary snapshot and the step
         # proceeds on the fresh control plane.
-        try:
-            self.cg.set_time(self.step_no)
-            self.cg.flush()
-        except DaemonError:
-            self._rebuild_backend()
+        with span("engine.flush"):
+            try:
+                self.cg.set_time(self.step_no)
+                self.cg.flush()
+            except DaemonError:
+                self._rebuild_backend()
+        marks.append(clock())
         if e.mode == "userspace":
-            self._userspace_policy()
-            self._apply_pending_gate()
-        inputs = np.zeros((4, e.max_slots), np.int32)  # tokens/lengths/dom/amt
-        inputs[2] = -1
-        for slot, sid in enumerate(self.slot_session):
-            if sid is None:
-                continue
-            s = self.sessions[sid]
-            if s.state is not SState.RUNNING:
-                continue
-            self._sync_tool_domain(s)
-            inputs[0, slot] = s.next_input() % self.cfg.padded_vocab
-            inputs[1, slot] = min(s.length, e.s_max - 1)
-            inputs[2, slot] = s.dom_idx
-            inputs[3, slot] = self.accountant.crossing(s.length)
-        dev_in = torch.from_numpy(inputs).to(self.device)
-        host_gate = torch.from_numpy(self._host_gate).to(self.device)
-        nxt, new_ctrl, granted, _ = self._device_step(
-            dev_in[0], dev_in[1], dev_in[2], dev_in[3], host_gate,
-            e.mode == "inkernel")
-        self._view.commit(new_ctrl)
-        nxt = nxt.cpu().numpy()
-        granted = granted.cpu().numpy()
-        amt = inputs[3]
-        # throttle-trigger accounting (memcg_bpf_ops delay counter)
-        tu = self._view.state["throttle_until"].reshape(-1).cpu().numpy(
-        ).astype(np.int64)
-        self.metrics.throttle_triggers += int(np.sum(tu > self._prev_throttle))
-        self._prev_throttle = np.maximum(tu, self._prev_throttle)
+            with span("engine.policy"):
+                self._userspace_policy()
+                self._apply_pending_gate()
+        marks.append(clock())
+        with span("engine.inputs"):
+            # tokens/lengths/dom/amt
+            inputs = np.zeros((4, e.max_slots), np.int32)
+            inputs[2] = -1
+            for slot, sid in enumerate(self.slot_session):
+                if sid is None:
+                    continue
+                s = self.sessions[sid]
+                if s.state is not SState.RUNNING:
+                    continue
+                self._sync_tool_domain(s)
+                inputs[0, slot] = s.next_input() % self.cfg.padded_vocab
+                inputs[1, slot] = min(s.length, e.s_max - 1)
+                inputs[2, slot] = s.dom_idx
+                inputs[3, slot] = self.accountant.crossing(s.length)
+        marks.append(clock())
+        with span("engine.issue"):
+            dev_in = torch.from_numpy(inputs).to(self.device)
+            host_gate = torch.from_numpy(self._host_gate).to(self.device)
+            nxt, new_ctrl, granted, _ = self._device_step(
+                dev_in[0], dev_in[1], dev_in[2], dev_in[3], host_gate,
+                e.mode == "inkernel")
+        marks.append(clock())
+        with span("engine.readback"):
+            self._view.commit(new_ctrl)
+            # the first read waits for the device's queue
+            nxt = nxt.cpu().numpy()
+            granted = granted.cpu().numpy()
+            tu = self._view.state["throttle_until"].reshape(-1)
+            tu = tu.cpu().numpy().astype(np.int64)
+        marks.append(clock())
+        with span("engine.sessions"):
+            # throttle-trigger accounting (memcg_bpf_ops delay counter)
+            self.metrics.throttle_triggers += int(
+                np.sum(tu > self._prev_throttle))
+            self._prev_throttle = np.maximum(tu, self._prev_throttle)
+            self._advance_sessions(nxt, granted, inputs[3])
+        marks.append(clock())
+        with span("engine.daemon"):
+            self._daemon()
+        marks.append(clock())
+        tracing.record_step(self.trace_id, self.step_no, marks)
+        self.step_no += 1
+        self.metrics.steps = self.step_no
 
+    def _advance_sessions(self, nxt, granted, amt) -> None:
+        """After the device step: advance the granted slots' sessions
+        and finish those done; graduated feedback, rollback or eviction
+        for the stalled."""
+        e = self.ecfg
         for slot, sid in enumerate(self.slot_session):
             if sid is None:
                 continue
@@ -616,9 +670,6 @@ class Engine:
                     self.metrics.n_feedbacks += 1
                 elif stall > e.evict_patience_steps:
                     self._evict(s)
-        self._daemon()
-        self.step_no += 1
-        self.metrics.steps = self.step_no
 
     def close(self) -> None:
         """Release backend resources: stops the async lifecycle daemon
@@ -674,5 +725,5 @@ class Engine:
             "feedbacks": self.metrics.n_feedbacks,
             "overshoot_pages": self.metrics.overshoot_pages,
             "session_overshoot_pages": self.metrics.session_overshoot_pages,
-            "peak_pool_pages": max(self.metrics.root_usage, default=0),
+            "peak_pool_pages": self.metrics.peak_pool_pages,
         }
