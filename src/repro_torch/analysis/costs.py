@@ -73,18 +73,6 @@ def block_bytes(n: int) -> int:
     return -(-n // BLOCK) * BLOCK
 
 
-def _bincount(x, weights=None, minlength=0):
-    # its output length is data: max(x) + 1 or minlength.  On the models'
-    # paths (the MoE router's load count) x lies below minlength, the
-    # expert count
-    dtype = torch.int64 if weights is None else weights.dtype
-    return torch.zeros(minlength, dtype=dtype, device=x.device)
-
-
-# ops whose output shape depends on the data, run by shape alone
-_BY_SHAPE = {aten.bincount.default: _bincount}
-
-
 def _tensors(tree) -> list:
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
@@ -132,11 +120,7 @@ class CostCounter(TorchDispatchMode):
         if out is not NotImplemented:
             return out
         ins = _tensors((args, kwargs))
-        by_shape = _BY_SHAPE.get(func)
-        if by_shape is not None and not any(map(fake.holds_data, ins)):
-            out = by_shape(*args, **kwargs)
-        else:
-            out = func(*args, **kwargs)
+        out = func(*args, **kwargs)
         outs = _tensors(out)
         mine = [t for t in ins + outs if t.device.type == self.device]
         if not mine:

@@ -19,7 +19,9 @@
   ops               — the per-op entry points the models call
 
 Each wrapper counts the launches of its kernel in a ``launches``
-attribute; ``launch_counts``/``reset_launch_counts`` read and zero them.
+attribute; ``launch_counts``/``reset_launch_counts`` read and zero them,
+and ``add_launches`` counts launches that no wrapper's Python ran (a
+CUDA graph's replay).
 """
 from __future__ import annotations
 
@@ -47,3 +49,11 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (a wrapper's name -> launches) to the
+    wrappers' counters."""
+    fns = _wrappers()
+    for name, n in counts.items():
+        fns[name].launches += times * n

@@ -34,9 +34,9 @@ Meta tensors, not ``FakeTensorMode``'s fake ``cuda`` ones: autograd asks
 a tensor's device for its stream when it records a leaf, and a torch
 built without CUDA has none to give, so a train cell's backward could
 not be traced there; on the meta device the forward and backward trace
-anywhere, and the wrappers see no CUDA tensor either way.  The one
-data-shaped op on the models' paths, the MoE router's ``bincount``, is
-run by shape (``analysis/costs.py``).
+anywhere, and the wrappers see no CUDA tensor either way.  No op on the
+models' paths has an output shape that depends on the data (the MoE
+router counts its experts' load by a scatter), so each runs as it is.
 
 The cuts the port's launchers take are taken here too: ``--layers``
 (a multiple of the config's layer group), ``--batch`` and ``--seq``;

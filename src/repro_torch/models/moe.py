@@ -43,10 +43,21 @@ def _router(cfg: ModelConfig, p, xf):
     return probs, ids, gates
 
 
+def _counts(ids, n_experts: int):
+    """Assignments an expert (int64): ``bincount``'s counts, by a scatter
+    whose output shape the host knows without reading ``ids`` (the card's
+    ``bincount`` reads their maximum back, which waits for the device and
+    cannot be captured in a CUDA graph)."""
+    ids = ids.reshape(-1).long()
+    return torch.zeros(n_experts, dtype=torch.int64,
+                       device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def _aux_loss(cfg: ModelConfig, probs, ids):
     """Switch-style load-balance loss: E * sum_e f_e * P_e."""
     E = cfg.moe.n_experts
-    fe = torch.bincount(ids.reshape(-1), minlength=E).float()
+    fe = _counts(ids, E).float()
     fe = fe / max(ids.numel(), 1)
     pe = probs.mean(0)
     return cfg.moe.aux_coef * E * (fe * pe).sum()
@@ -93,7 +104,7 @@ def _gather_dispatch(cfg: ModelConfig, p, xf, ids, gates, *,
     gate = gates.reshape(-1)
     # rank of each assignment within its expert, by a stable sort
     order = torch.sort(eid, stable=True).indices
-    counts = torch.bincount(eid, minlength=E)
+    counts = _counts(eid, E)
     starts = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(Tk, device=dev) - starts[eid[order]]
     pos = torch.empty(Tk, dtype=torch.long, device=dev)

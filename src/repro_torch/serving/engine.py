@@ -26,6 +26,12 @@ reads the control state, bit-exact with the synchronous backends.  A
 poisoned daemon surfaces there as ``DaemonError``; the engine rebuilds
 the backend from the last step-boundary snapshot and its own session
 state, and the step goes on.
+
+On a card the step's device work after the charge (the gated merge, the
+decode over every layer, the greedy sample) is one CUDA graph
+(``StepGraph``), replayed each step from buffers whose addresses never
+change; on the CPU it runs eagerly.  The tensors' device decides, nothing
+else.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import tracing
+from repro_torch import kernels, tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import domains as D
 from repro_torch.core import pressure as PSI
@@ -111,6 +117,49 @@ class EngineMetrics:
     steps: int = 0
 
 
+class StepGraph:
+    """One CUDA graph of ``fn``, a callable that reads only tensors whose
+    addresses never change and is the same on every call.  ``run(fn)``
+    calls it eagerly the first time (which warms cuBLAS, builds the
+    kernels and sets their attributes), captures it the second time and
+    replays the capture from then on: capture executes nothing, so the
+    second call replays too.  The kernel wrappers count their launches in
+    Python, which a replay does not run: the capture's count is taken
+    back off, and added on every replay, so ``kernels.launch_counts()``
+    counts what the device ran."""
+
+    def __init__(self):
+        self.graph = None
+        self.out = None
+        self.launches: dict = {}     # a wrapper's launches in one replay
+        self.warm = False
+
+    def run(self, fn):
+        """(fn's output, whether it came from a replay).  A replay's
+        output is the same tensor each time, overwritten by the next."""
+        if not self.warm:
+            self.warm = True
+            return fn(), False
+        if self.graph is None:
+            self._capture(fn)
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        return self.out, True
+
+    def _capture(self, fn) -> None:
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        # thread-local: the async backend's daemon thread may call the
+        # CUDA runtime while this thread captures
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = fn()
+        after = kernels.launch_counts()
+        self.launches = {k: n - before[k] for k, n in after.items()
+                         if n != before[k]}
+        kernels.add_launches(self.launches, -1)
+        self.graph, self.out = graph, out
+
+
 class Engine:
     def __init__(self, cfg: ModelConfig, params, *,
                  ecfg: EngineConfig = EngineConfig(), seed: int = 0,
@@ -171,6 +220,12 @@ class Engine:
         # the step clock's and the admission records' rows (tracing.py)
         self.trace_id = tracing.engine_id()
         self._submit_row: dict[str, int] = {}
+        # the step's device part as a graph, on a card; ``_graphed``
+        # marks a step whose device work was a replay
+        self._graph = None
+        self._graphed = 0
+        if self.device.type == "cuda":
+            self._hold_graph()
 
     def _make_inner(self):
         e = self.ecfg
@@ -489,8 +544,32 @@ class Engine:
     # ----------------------------------------------------------------- step
 
     def _device_step(self, tokens, lengths, dom, amt, host_gate, inkernel):
-        """The in-step program: schedule, charge (or the stale host gate),
-        decode one token, sample, merge the state under the gate."""
+        """The in-step program: the control part (schedule, charge or the
+        stale host gate), then the device part (the gated merge, decode
+        one token, sample), replayed as one graph on a card."""
+        ctrl, granted, stalled = self._control(dom, amt, host_gate,
+                                               inkernel)
+        if self._graph is None:
+            self._graphed = 0
+            out = self._decode(tokens, lengths, granted)
+        else:
+            st = self._static
+            st["tokens"].copy_(tokens)
+            st["lengths"].copy_(lengths)
+            st["gate"].copy_(granted)
+            out, replayed = self._graph.run(lambda: self._decode(
+                st["tokens"], st["lengths"], st["gate"]))
+            self._graphed = int(replayed)
+        if self.ecfg.temperature > 0:
+            # the draw stays eager: the generator's sequence is unchanged
+            out = self._pick(out, tokens, granted)
+        return out, ctrl, granted, stalled
+
+    def _control(self, dom, amt, host_gate, inkernel):
+        """The control part, eager on every device: (the new control
+        state, granted, stalled); a granted slot advances.  The charge
+        takes the Python step number, writes a fresh state and may be
+        tapped, so no graph holds it."""
         e = self.ecfg
         view = self._view
         ctrl = view.state
@@ -504,17 +583,30 @@ class Engine:
         if inkernel:
             # in-step enforcement: charge + gate inside the same step
             with span("engine.charge"):
-                ctrl, granted, stalled = view.charge(ctrl, dom, amt,
-                                                     self.step_no)
-            gate = granted
-        else:
-            # user-space baseline: the (stale) host gate decides; usage is
-            # charged after the fact, so bursts overshoot the budget
-            gate = host_gate & (dom >= 0)
-            with span("engine.charge"):
-                ctrl = view.account(ctrl, torch.where(
-                    gate, dom, torch.full_like(dom, -1)), amt)
-            granted, stalled = gate, (dom >= 0) & ~gate
+                return view.charge(ctrl, dom, amt, self.step_no)
+        # user-space baseline: the (stale) host gate decides; usage is
+        # charged after the fact, so bursts overshoot the budget
+        gate = host_gate & (dom >= 0)
+        with span("engine.charge"):
+            ctrl = view.account(ctrl, torch.where(
+                gate, dom, torch.full_like(dom, -1)), amt)
+        return ctrl, gate, (dom >= 0) & ~gate
+
+    def _hold_graph(self) -> None:
+        """Issue the step's device part as a ``StepGraph`` over static
+        inputs (tokens, lengths, gate), which each step copies in."""
+        m, dev = self.ecfg.max_slots, self.device
+        self._static = {
+            "tokens": torch.zeros(m, dtype=torch.int32, device=dev),
+            "lengths": torch.zeros(m, dtype=torch.int32, device=dev),
+            "gate": torch.zeros(m, dtype=torch.bool, device=dev)}
+        self._graph = StepGraph()
+
+    def _decode(self, tokens, lengths, gate):
+        """The device part: decode one token of every slot, its state
+        merged under the gate; the next tokens, or the logits where the
+        draw is not greedy."""
+        e = self.ecfg
         # The gated merge, in place: the reference's where() over the
         # whole state, without copying it.  decode_step writes only row
         # lengths[b] of each attention cache (GQA's k/v, MLA's ckv/krope);
@@ -544,10 +636,17 @@ class Engine:
                     keep = gate.view(1, -1, *(1,) * (t.dim() - 3))
                     t[:, bidx, rows] = torch.where(keep, t[:, bidx, rows],
                                                    old[k])
+        if e.temperature > 0:
+            return logits
+        return self._pick(logits, tokens, gate)
+
+    def _pick(self, logits, tokens, gate):
+        """The next token of each slot: sampled where the gate granted,
+        the fed token kept where it did not."""
         with span("engine.sample"):
-            nxt = sample(logits, self.generator, temperature=e.temperature)
-            nxt = torch.where(gate, nxt, tokens)
-        return nxt, ctrl, granted, stalled
+            nxt = sample(logits, self.generator,
+                         temperature=self.ecfg.temperature)
+            return torch.where(gate, nxt, tokens)
 
     def step(self) -> None:
         e = self.ecfg
@@ -614,7 +713,8 @@ class Engine:
         with span("engine.daemon"):
             self._daemon()
         marks.append(clock())
-        tracing.record_step(self.trace_id, self.step_no, marks)
+        tracing.record_step(self.trace_id, self.step_no, marks,
+                            self._graphed)
         self.step_no += 1
         self.metrics.steps = self.step_no
 

@@ -15,8 +15,9 @@ Three things, none of them part of the control state:
 * The step clock, always on, like cgroup's ``memory.stat``: each
   ``Engine.step`` writes one row of ``STEP_COLUMNS`` into a ring of
   ``STEP_CAPACITY`` steps: the engine's id, its ``step_no``, start and
-  end on ``time.perf_counter_ns()`` and the nanoseconds of each phase of
-  ``PHASES``, which tile the step.
+  end on ``time.perf_counter_ns()``, the nanoseconds of each phase of
+  ``PHASES``, which tile the step, and ``graphed``: 1 where the step's
+  device work was issued as one CUDA graph's replay, else 0.
 * Admission records: ``Engine.submit`` stamps a session's submission,
   ``Engine._try_admit`` its admission (``admit_ns`` is -1 while it
   waits), with its priority, in a ring of ``SESSION_CAPACITY``.
@@ -40,7 +41,8 @@ from torch._C._profiler import _RecordFunctionFast
 # the step's top-level phases, in order (each a span ``engine.<phase>``)
 PHASES = ("flush", "policy", "inputs", "issue", "readback", "sessions",
           "daemon")
-STEP_COLUMNS = ("engine", "step", "start_ns", "end_ns") + PHASES
+STEP_COLUMNS = ("engine", "step", "start_ns", "end_ns") + PHASES + (
+    "graphed",)
 SESSION_COLUMNS = ("engine", "priority", "submit_ns", "admit_ns")
 STEP_CAPACITY = 8192
 SESSION_CAPACITY = 8192
@@ -113,10 +115,11 @@ def engine_id() -> int:
     return next(_engine_ids)
 
 
-def record_step(engine: int, step: int, marks: list) -> None:
-    """One step's row from its ``len(PHASES) + 1`` boundaries (ns)."""
+def record_step(engine: int, step: int, marks: list, graphed: int) -> None:
+    """One step's row from its ``len(PHASES) + 1`` boundaries (ns) and
+    whether its device work was a graph's replay (1) or not (0)."""
     _steps.append([engine, step, marks[0], marks[-1]]
-                  + [b - a for a, b in zip(marks, marks[1:])])
+                  + [b - a for a, b in zip(marks, marks[1:])] + [graphed])
 
 
 def record_submit(engine: int, priority: int, t_ns: int) -> int:

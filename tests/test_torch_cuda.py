@@ -8,7 +8,8 @@ call, the paged decode's page sizes and unequal k/v widths, the
 SSD scan's chunk, state and head widths, and every stock enforcement
 program over random tables and the engine-shaped ones of
 ``kernels/enforcement_bench.py`` up to n 20,008, with and without the
-sharded backend's leading shard axis.  Marked ``cuda``:
+sharded backend's leading shard axis; and the serving engine's step
+replayed as one CUDA graph against its eager step.  Marked ``cuda``:
 without a
 card these tests skip.  On the card (no JAX there, so skip the JAX
 conftest):
@@ -680,3 +681,94 @@ def test_ssd_refuses_what_it_cannot_take(dev):
         MS.ssd_scan(x.requires_grad_(), dt, one,
                     torch.zeros(1, 64, 8, device=dev),
                     torch.zeros(1, 64, 8, device=dev), one, chunk=64)
+
+
+# ----------------------------------------------------- the engine's graph
+
+# the full width of internlm2-20b (the serving cells' model) at 4 of its
+# 48 layers; 80 steps of one HIGH and four LOW agent sessions, a pool of
+# 16 eight-token pages and LOW highs of 4 pages: throttles, three freezes,
+# a thaw and a finished session
+GRAPH_LAYERS = 4
+GRAPH_STEPS = 80
+
+
+def _agent_sessions() -> list:
+    from repro_torch.core import domains as D
+    from repro_torch.serving import session as S
+    out = [S.Session(sid="hi", tenant="fg", priority=D.HIGH,
+                     prompt=list(range(2, 18)),
+                     phases=[S.Phase(4, 40, "test"), S.Phase(6, 0)])]
+    for i in range(4):
+        out.append(S.Session(
+            sid=f"lo{i}", tenant="bg", priority=D.LOW,
+            prompt=list(range(3 + i, 19 + 5 * i)),
+            phases=[S.Phase(4, 48 + 16 * i, "test"), S.Phase(4, 0)]))
+    return out
+
+
+def _serve_recorded(eng) -> tuple:
+    """``GRAPH_STEPS`` steps of the agent sessions: each step's tokens
+    and grants, and the launches the wrappers counted."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    seen = []
+    real = eng._device_step
+
+    def step(*args, **kw):
+        out = real(*args, **kw)
+        seen.append((out[0].cpu().clone(), out[2].cpu().clone()))
+        return out
+    eng._device_step = step
+    for s in _agent_sessions():
+        eng.submit(s)
+    reset_launch_counts()
+    eng.run(GRAPH_STEPS)
+    torch.cuda.synchronize()
+    return seen, launch_counts()
+
+
+def test_graphed_engine_step_equals_the_eager_step(dev):
+    """A card engine replays its step's device part as one CUDA graph from
+    the second step on; the same engine with the eager device part called
+    directly gives the same tokens and grants each step, the same control
+    table, report and sessions' tokens, and the wrappers count the same
+    launches: one decode a layer a step."""
+    import dataclasses
+
+    from repro_torch import tracing
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = dataclasses.replace(get_config("internlm2-20b"),
+                              n_layers=GRAPH_LAYERS)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    ecfg = EngineConfig(max_slots=4, s_max=256, pool_pages=16, page_tokens=8,
+                        session_high={f"lo{i}": 4 for i in range(4)})
+    runs = []
+    for graphed in (True, False):
+        eng = Engine(cfg, params, ecfg=ecfg, seed=0, device=dev)
+        if not graphed:
+            eng._graph = None
+        runs.append((eng,) + _serve_recorded(eng))
+    (geng, got, gcounts), (eeng, want, ecounts) = runs
+    for i, ((a, b), (c, d)) in enumerate(zip(got, want)):
+        assert torch.equal(a, c) and torch.equal(b, d), i
+    report = geng.report()
+    assert report == eeng.report()
+    assert report["freezes"] >= 1 and report["thaws"] >= 1
+    assert report["completed"] >= 1 and report["throttle_triggers"] >= 1
+    assert [s.out_tokens for s in geng.sessions.values()] == \
+        [s.out_tokens for s in eeng.sessions.values()]
+    gst, est = geng._view.state, eeng._view.state
+    assert gst.keys() == est.keys()
+    for k in gst:
+        assert torch.equal(gst[k], est[k]), k
+    assert gcounts == ecounts
+    assert gcounts["decode_attention"] == GRAPH_LAYERS * GRAPH_STEPS
+    assert gcounts["fused_charge_batch"] == GRAPH_STEPS
+    st = tracing.steps()
+    mine = st["engine"] == geng.trace_id
+    assert st["graphed"][mine].tolist() == [0] + [1] * (GRAPH_STEPS - 1)
+    assert not st["graphed"][st["engine"] == eeng.trace_id].any()

@@ -37,6 +37,7 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.models import model as TM
 from repro_torch.serving import session as TS
 from repro_torch.serving.engine import Engine as TEngine
+from repro_torch.serving.engine import StepGraph
 from repro_torch.serving.engine import EngineConfig as TEngineConfig
 from repro_torch.traces import generator as TG
 
@@ -450,3 +451,258 @@ def test_freeze_thaw_gives_the_state_back_bit_for_bit(family_models, arch):
     assert len(got) == len(want)
     for a, b in zip(want, got):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ------------------------------------------- the step's two parts, the graph
+
+
+def _parent_device_step(self, tokens, lengths, dom, amt, host_gate,
+                        inkernel):
+    """``Engine._device_step`` as it was before the step was split into
+    its control part and its device part: the reference the split is
+    held to."""
+    from repro_torch.serving.sampling import sample
+    e = self.ecfg
+    view = self._view
+    ctrl = view.state
+    if e.sched_slots is not None:
+        cost = (dom >= 0).to(torch.int32)
+        ctrl, advance = view.schedule(ctrl, dom, cost, self.step_no,
+                                      e.sched_slots)
+        dom = torch.where(advance, dom, torch.full_like(dom, -1))
+    if inkernel:
+        ctrl, granted, stalled = view.charge(ctrl, dom, amt, self.step_no)
+        gate = granted
+    else:
+        gate = host_gate & (dom >= 0)
+        ctrl = view.account(ctrl, torch.where(
+            gate, dom, torch.full_like(dom, -1)), amt)
+        granted, stalled = gate, (dom >= 0) & ~gate
+    state = self.caches.state
+    attn = [pos for kind, pos in zip(self.cfg.layer_kinds(), state)
+            if kind == "attn"]
+    bidx = torch.arange(e.max_slots, device=self.device)
+    rows = lengths.long()
+    saved = [{k: t[:, bidx, rows] for k, t in pos.items()} for pos in attn]
+    logits, _ = TM.decode_step(self.cfg, self.params, state, tokens,
+                               lengths, keep=gate)
+    for pos, old in zip(attn, saved):
+        for k, t in pos.items():
+            keep = gate.view(1, -1, *(1,) * (t.dim() - 3))
+            t[:, bidx, rows] = torch.where(keep, t[:, bidx, rows], old[k])
+    nxt = sample(logits, self.generator, temperature=e.temperature)
+    nxt = torch.where(gate, nxt, tokens)
+    return nxt, ctrl, granted, stalled
+
+
+def _recorded(eng, device_step) -> list:
+    """Route the engine's steps through ``device_step``, keeping each
+    step's tokens, grants and stalls."""
+    seen = []
+
+    def step(*args, **kw):
+        nxt, ctrl, granted, stalled = device_step(*args, **kw)
+        seen.append((nxt.clone(), granted.clone(), stalled.clone()))
+        return nxt, ctrl, granted, stalled
+    eng._device_step = step
+    return seen
+
+
+def _step_rows(eng) -> dict:
+    from repro_torch import tracing
+    st = tracing.steps()
+    mine = st["engine"] == eng.trace_id
+    return {k: v[mine] for k, v in st.items()}
+
+
+SPLIT_STEPS = 160
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_split_step_equals_the_unsplit_step(torch_model, mode):
+    """The control part then the device part, both eager (the CPU path),
+    give each step the tokens, grants and stalls of the unsplit step,
+    and the run its control table, report and step-clock rows; no CPU
+    step is graphed."""
+    tcfg, tparams = torch_model
+    runs = []
+    for split in (False, True):
+        eng = TEngine(tcfg, tparams,
+                      ecfg=TEngineConfig(**COMMON, **MODES[mode]), seed=0,
+                      device="cpu")
+        if mode in WEIGHTED:
+            eng.attach_program(TSched.WeightedFairProgram())
+        for s in sessions(TS, TD):
+            eng.submit(s)
+        fn = (eng._device_step if split
+              else _parent_device_step.__get__(eng))
+        seen = _recorded(eng, fn)
+        eng.run(SPLIT_STEPS)
+        runs.append((eng, seen))
+    (old, want), (new, got) = runs
+    assert len(got) == len(want) == SPLIT_STEPS
+    for a, b in zip(want, got):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert new.report() == old.report()
+    assert new._view.state.keys() == old._view.state.keys()
+    for k, t in old._view.state.items():
+        assert torch.equal(new._view.state[k], t), k
+    rows_old, rows_new = _step_rows(old), _step_rows(new)
+    assert rows_new["step"].tolist() == rows_old["step"].tolist() == list(
+        range(SPLIT_STEPS))
+    assert new._graph is None
+    assert not rows_new["graphed"].any() and not rows_old["graphed"].any()
+
+
+def _state_ptrs(caches) -> list:
+    return [t.data_ptr() for pos in caches.state for t in pos.values()]
+
+
+@pytest.mark.parametrize("op", ["free_slot", "freeze_slot", "thaw_slot",
+                                "engine_run"])
+def test_slot_state_keeps_its_addresses(torch_model, op):
+    """What a graph of the step reads keeps its address: the slot
+    caches across a free, a freeze and a thaw, and the caches and the
+    parameters across a run that freezes and thaws."""
+    from repro_torch.serving.kvcache import SlotCaches
+    tcfg, tparams = torch_model
+    if op == "engine_run":
+        eng = TEngine(tcfg, tparams, ecfg=TEngineConfig(**TRACE_ENGINE),
+                      seed=0, device="cpu")
+        caches = eng.caches
+        before = _state_ptrs(caches)
+        params = [t.data_ptr() for t in tree_leaves(eng.params)]
+        for s in trace_sessions(TS, TD, TG):
+            eng.submit(s)
+        eng.run(6000)
+        assert eng.metrics.n_freezes and eng.metrics.n_thaws
+        assert [t.data_ptr() for t in tree_leaves(eng.params)] == params
+        assert _state_ptrs(caches) == before
+        return
+    caches = SlotCaches(tcfg, 3, 32, "cpu")
+    before = _state_ptrs(caches)
+    assert [caches.alloc_slot() for _ in range(3)] == [0, 1, 2]
+    if op == "free_slot":
+        caches.free_slot(1)
+    else:
+        caches.free_slot(0)
+        caches.freeze_slot("s", 1, pages=2)
+        if op == "thaw_slot":
+            assert caches.thaw_slot("s")[0] == 0
+    assert _state_ptrs(caches) == before
+
+
+class _StubGraph:
+    """``torch.cuda.CUDAGraph`` on the CPU: counts its replays."""
+    replays = 0
+
+    def replay(self):
+        type(self).replays += 1
+
+
+@pytest.mark.parametrize("replays", [1, 5])
+def test_step_graph_counts_each_replays_launches(monkeypatch, replays):
+    """``StepGraph`` on a stub graph: the eager first call counts its
+    launches as it runs; the capture's count is taken back off (capture
+    executes nothing) and every replay adds it, so the counters equal
+    what a device would have run."""
+    import contextlib
+
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import mamba_scan as KM
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g, **kw: contextlib.nullcontext())
+    monkeypatch.setattr(_StubGraph, "replays", 0)
+    out = torch.zeros(2)
+    calls = []
+
+    def body():
+        # three decode launches and one scan launch, as their wrappers
+        # count them
+        KD.decode_attention.launches += 3
+        KM.ssd_scan.launches += 1
+        calls.append(1)
+        return out
+    reset_launch_counts()
+    sg = StepGraph()
+    assert sg.run(body) == (out, False)
+    assert launch_counts()["decode_attention"] == 3
+    for i in range(replays):
+        got, replayed = sg.run(body)
+        assert got is out and replayed
+    # the body ran twice (eager, capture); the graph replayed each time
+    # after
+    assert len(calls) == 2 and _StubGraph.replays == replays
+    assert sg.launches == {"decode_attention": 3, "ssd_scan": 1}
+    counts = launch_counts()
+    assert counts["decode_attention"] == 3 * (1 + replays)
+    assert counts["ssd_scan"] == 1 + replays
+    assert {k for k, n in counts.items() if n} == {"decode_attention",
+                                                     "ssd_scan"}
+    reset_launch_counts()
+
+
+def test_cpu_steps_are_never_graphed(torch_model):
+    """On the CPU the engine holds no graph and marks every step's row
+    ``graphed`` 0."""
+    tcfg, tparams = torch_model
+    eng = TEngine(tcfg, tparams, ecfg=TEngineConfig(**TRACE_ENGINE), seed=0,
+                  device="cpu")
+    for s in trace_sessions(TS, TD, TG):
+        eng.submit(s)
+    eng.run(40)
+    rows = _step_rows(eng)
+    assert eng._graph is None and len(rows["graphed"]) == 40
+    assert (rows["graphed"] == 0).all()
+
+
+class _EmulatedGraph(StepGraph):
+    """``StepGraph`` with its capture emulated on the CPU: each replay
+    runs the body again and writes its output into one tensor, as a
+    graph's replay writes its captured output."""
+
+    def _capture(self, fn):
+        self.graph, self.fn = self, fn
+
+    def replay(self):
+        out = self.fn()
+        if self.out is None:
+            self.out = out.clone()
+        else:
+            self.out.copy_(out)
+
+
+@pytest.mark.parametrize("mode,temperature", [
+    ("inkernel", 0.0), ("userspace", 0.0), ("nolimit", 0.0),
+    ("inkernel_sched", 0.0), ("inkernel", 0.7)])
+def test_graph_path_equals_the_eager_path(torch_model, monkeypatch, mode,
+                                          temperature):
+    """The card's path (static inputs copied in each step, the device
+    part run once eagerly, then replayed) with the graph emulated on the
+    CPU: the eager engine's tokens, grants and report; above temperature 0
+    the draw stays eager, so the generator gives the same tokens."""
+    from repro_torch.serving import engine as TE
+    tcfg, tparams = torch_model
+    monkeypatch.setattr(TE, "StepGraph", _EmulatedGraph)
+    runs = []
+    for graphed in (False, True):
+        eng = TEngine(tcfg, tparams, ecfg=TEngineConfig(
+            **COMMON, **MODES[mode], temperature=temperature), seed=0,
+            device="cpu")
+        if mode in WEIGHTED:
+            eng.attach_program(TSched.WeightedFairProgram())
+        if graphed:
+            eng._hold_graph()
+        for s in sessions(TS, TD):
+            eng.submit(s)
+        seen = _recorded(eng, eng._device_step)
+        eng.run(SPLIT_STEPS)
+        runs.append((eng, seen))
+    (eager, want), (graph, got) = runs
+    for a, b in zip(want, got):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert graph.report() == eager.report()
+    assert _step_rows(graph)["graphed"].tolist() == [0] + [1] * (
+        SPLIT_STEPS - 1)
