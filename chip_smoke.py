@@ -125,12 +125,14 @@ Phases, one JSON line each on standard output:
                  xlstm-350m, pixtral-12b (d 160), phi3-medium-14b and
                  internlm2-20b cut to 8 layers (the script's time),
                  llama4-maverick to 2 layers, Jamba to 8
-                 and deepseek-v2-236b to 4 (the cuts printed with their
-                 reason); each report equal
+                 and deepseek-v2-236b to 4 (the JAX package's twin of
+                 it; the published form is the benchmark's
+                 portbench/configs/deepseek-v2-236b.json) (the cuts
+                 printed with their reason); each report equal
                  to the same config's reduced CPU run, the gate read on
                  the live table each step, one charge and one gate launch
                  a step and a decode launch per GQA attention layer a
-                 step (none for MLA, whose latent decode is torch);
+                 step (for MLA a latent decode launch per layer);
                  step p50/p95, tokens/s, peak memory; on Jamba, xLSTM
                  and deepseek-v2, a slot the gate denies keeps its whole
                  state (deepseek's latent ckv/krope rows too) bit for bit,
@@ -200,9 +202,14 @@ Phases, one JSON line each on standard output:
   mla_full       the MLA model (the reduced f32 deepseek with the real
                  head dims, dk 192 / dv 128) forward on the card and on
                  the CPU: logits within 1e-4, then three decode steps;
+                 the latent decode kernel against its plain version at
+                 128 slots x 128 heads x 4096 rows (1e-2 a slot), timed;
                  and ``models/model.py::forward`` under inference mode on
-                 the full-width deepseek-v2-236b cut to 4 layers over one
-                 4096-token sequence: 4 flash launches a call, finite
+                 the full-width deepseek-v2-236b (the JAX package's
+                 twin; the published form is the benchmark's
+                 portbench/configs/deepseek-v2-236b.json) cut to 4
+                 layers over one 4096-token sequence: 4 flash launches
+                 a call, finite
                  logits, the cross-entropy where random weights put it.
   examples       the example twins (``repro_torch.examples``) on the
                  card, each against the port's CPU run: quickstart from
@@ -2609,11 +2616,56 @@ def deepseek_forward_full(dev, seed: int) -> dict:
             "cut": FAMILIES_FULL[DEEPSEEK][1]}
 
 
+def mla_decode_kernel(dev, seed: int) -> dict:
+    """The latent decode kernel against its plain version at the serving
+    cell's shape (128 slots x 128 heads, S_max 4096, random live rows):
+    each slot within 1e-2 (Frobenius, relative), one launch a call; both
+    timed on CUDA events beside the kernel's bound."""
+    from repro_torch.kernels import mla_decode as MD
+
+    B, H, S = 128, 128, 4096
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ckv = torch.randn(B, S, 512, device=dev, generator=g).bfloat16()
+    kr = torch.randn(B, S, 64, device=dev, generator=g).bfloat16()
+    ql = (torch.randn(B, H, 512, device=dev, generator=g) / 22).bfloat16()
+    qr = (torch.randn(B, H, 64, device=dev, generator=g) / 22).bfloat16()
+    live = torch.randint(1, S + 1, (B,), device=dev, generator=g,
+                         dtype=torch.int32)
+    args = (ql, qr, ckv, kr, live)
+    before = MD.mla_decode.launches
+    got = MD.mla_decode(*args)
+    want = MD.mla_decode_plain(*args)
+    if MD.mla_decode.launches != before + 1:
+        raise AssertionError("mla_decode: no launch counted")
+    d = (got.float() - want.float()).flatten(1).norm(dim=1)
+    rel = (d / want.float().flatten(1).norm(dim=1)).max().item()
+    if not rel < 1e-2:
+        raise AssertionError(f"mla_decode: slot error {rel}")
+
+    def ms(fn, reps):
+        fn(*args)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        e0.record()
+        for _ in range(reps):
+            fn(*args)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    c = MD.cost(B, H, 512, 64, live.tolist())
+    bound = max(c["ops"] / 989e12, c["bytes"] / 3.35e12) * 1e3
+    return {"slot_rel_err": rel, "kernel_ms": ms(MD.mla_decode, 20),
+            "plain_ms": ms(MD.mla_decode_plain, 3), "bound_ms": bound}
+
+
 def mla_full(dev, seed: int) -> dict:
-    """MLA on the card: ``mla_parity`` and ``deepseek_forward_full``."""
+    """MLA on the card: ``mla_parity``, ``mla_decode_kernel`` and
+    ``deepseek_forward_full``."""
     import gc
 
     out = {"mla_parity": mla_parity(dev, seed),
+           "mla_decode_kernel": mla_decode_kernel(dev, seed),
            "deepseek_forward_full": deepseek_forward_full(dev, seed)}
     gc.collect()
     torch.cuda.empty_cache()
@@ -3155,7 +3207,8 @@ def families_full(dev, seed: int, refs: CpuRefs,
         full = get_config(arch)
         want = {k: 0 for k in counts}
         want.update(fused_charge_batch=steps, fused_slot_gate=steps,
-                    decode_attention=decode_layers(cfg) * steps)
+                    decode_attention=decode_layers(cfg) * steps,
+                    mla_decode=mla_layers(cfg) * steps)
         if counts != want:
             raise AssertionError(f"{arch}: launches {counts}, expected "
                                  f"{want}")
@@ -3197,18 +3250,28 @@ def families_full(dev, seed: int, refs: CpuRefs,
 
 def decode_layers(cfg) -> int:
     """The decode kernel's launches a step: one per GQA attention layer;
-    MLA decodes its latent cache in torch (the reference's lax code)."""
+    MLA decodes its latent cache with ``mla_layers``'s kernel."""
     if cfg.mla is not None:
         return 0
     return cfg.layer_kinds().count("attn") * cfg.n_groups
 
 
+def mla_layers(cfg) -> int:
+    """The latent decode kernel's launches a step: one per MLA layer in
+    bf16 (an f32 latent cache decodes in torch)."""
+    if cfg.mla is None or cfg.dtype != "bfloat16":
+        return 0
+    return cfg.layer_kinds().count("attn") * cfg.n_groups + cfg.first_dense
+
+
 def _launches_as_steps(counts: dict, steps: int, cfg, what: str) -> None:
     """One charge launch a step (over every shard), the decode kernel a
-    GQA layer a step, nothing else."""
+    GQA layer a step, the latent decode kernel a bf16 MLA layer a step,
+    nothing else."""
     want = {k: 0 for k in counts}
     want.update(fused_charge_batch=steps,
-                decode_attention=decode_layers(cfg) * steps)
+                decode_attention=decode_layers(cfg) * steps,
+                mla_decode=mla_layers(cfg) * steps)
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 

@@ -30,6 +30,36 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     return 2.0 * n_active * shape.global_batch        # decode: 1 token/slot
 
 
+def mla_decode_flops(cfg: ModelConfig, context: int,
+                     assigned: float = 0.0) -> float:
+    """Useful compute of one token an MLA model decodes against
+    ``context`` live keys (itself included), in the absorbed form its
+    decode runs, with ``assigned`` routed assignments on the experts the
+    card holds: each attention layer's q path (down, up), latent and rope
+    projection, W_UK into the latent space, 2 H (L + rope) flops a live
+    key for the scores and 2 H L for the latent output, W_UV and W_O;
+    each dense FFN; each MoE layer's router and shared experts; the
+    output head; and 6 d f a routed assignment.  The embedding gather
+    multiplies nothing."""
+    d, H, m, e = cfg.d_model, cfg.n_heads, cfg.mla, cfg.moe
+    L, r = m.kv_lora_rank, m.qk_rope_head_dim
+    attn = 2.0 * (d * m.q_lora_rank
+                  + m.q_lora_rank * H * (m.qk_nope_head_dim + r)
+                  + d * (L + r) + H * m.qk_nope_head_dim * L
+                  + H * L * m.v_head_dim + H * m.v_head_dim * d)
+    attn += context * (2.0 * H * (L + r) + 2.0 * H * L)
+    n_attn = cfg.first_dense + cfg.layer_kinds().count("attn") * cfg.n_groups
+    flops = n_attn * attn + 2.0 * d * cfg.padded_vocab
+    ffns = cfg.ffn_kinds()
+    flops += (cfg.first_dense + ffns.count("dense") * cfg.n_groups) * (
+        6.0 * d * cfg.d_ff)
+    if e is not None:
+        flops += ffns.count("moe") * cfg.n_groups * (
+            2.0 * d * e.router_width + 6.0 * d * e.d_ff_expert * e.n_shared)
+        flops += assigned * 6.0 * d * e.d_ff_expert
+    return flops
+
+
 def roofline_from_costs(cfg: ModelConfig, shape: ShapeConfig, parsed: dict,
                         *, n_chips: int = 1) -> dict:
     """The reference's record from counted costs (``parsed``: the

@@ -1,15 +1,19 @@
 """Model configuration schema (port of ``repro/configs/base.py``).
 
 A copy of the JAX package's dataclasses, so the port never imports the
-reference, with the assigned input shapes (``SHAPES``; the trainer takes
-its sequence length from ``train_4k``) and the rule of which (arch x
-shape) cells apply (``cell_applicability``, identical to the reference's:
+reference (their fields as there; the published DeepSeek-V2's router,
+expert share, leading dense layers and YaRN enter as init-only settings
+of ``MoEConfig`` and ``MLAConfig``, and a section given as a mapping is
+built into its dataclass), with the assigned input shapes (``SHAPES``;
+the trainer takes its sequence length from ``train_4k``) and the rule
+of which (arch x shape) cells apply (``cell_applicability``, identical to the reference's:
 encoder-only archs have no decode step; ``long_500k`` needs sub-quadratic
 context handling), which the dry run (``launch/dryrun.py``) follows.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from collections.abc import Mapping
+from dataclasses import InitVar, dataclass
 from typing import Optional
 
 
@@ -19,7 +23,31 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Mixture-of-experts sub-config (routed + optional shared experts)."""
+    """Mixture-of-experts sub-config (routed + optional shared experts).
+
+    The fields are the JAX package's.  The init-only ones below carry the
+    published DeepSeek-V2 router and the expert-parallel share of one
+    card; they are read back as attributes of the same names, are not
+    dataclass fields (so ``dataclasses.asdict`` and ``==`` see the JAX
+    package's fields alone, and ``dataclasses.replace`` resets them), and
+    their defaults give the JAX package's routing:
+
+    * ``n_routed``: the experts the router ranks (its output width,
+      ``router_width``); 0 means ``n_experts``.  ``n_experts`` is how
+      many of them this card holds, ``first_expert`` the first held: the
+      layer routes over all of them and computes its held experts' part
+      of the result.
+    * ``n_group`` / ``topk_group``: group-limited greedy routing, the top
+      ``top_k`` taken among the experts of the ``topk_group`` groups with
+      the highest best score (1 / 1: plain greedy).
+    * ``norm_topk``: renormalise the top-k gates to sum 1; else the gates
+      are the softmax probabilities times ``routed_scale``.
+    * ``first_dense``: leading layers with a dense FFN of ``d_ff`` before
+      the repeated groups (DeepSeek's ``first_k_dense_replace``).
+
+    Each is kept as given (``dataclasses.replace`` carries them over), so
+    a twin cut to fewer experts keeps ranking all of its own.
+    """
 
     n_experts: int
     top_k: int
@@ -28,6 +56,58 @@ class MoEConfig:
     period: int = 1          # MoE FFN on layers where (i % period) == period-1
     aux_coef: float = 0.01   # load-balance auxiliary loss coefficient
     router_dtype: str = "float32"
+    n_routed: InitVar[int] = 0
+    first_expert: InitVar[int] = 0
+    n_group: InitVar[int] = 1
+    topk_group: InitVar[int] = 1
+    routed_scale: InitVar[float] = 1.0
+    norm_topk: InitVar[bool] = True
+    first_dense: InitVar[int] = 0
+
+    def __post_init__(self, n_routed, first_expert, n_group, topk_group,
+                      routed_scale, norm_topk, first_dense):
+        width = n_routed or self.n_experts
+        if not 0 <= first_expert <= width - self.n_experts:
+            raise ValueError(f"experts {first_expert}.."
+                             f"{first_expert + self.n_experts - 1} are not "
+                             f"among the router's {width}")
+        if width % n_group or not 1 <= topk_group <= n_group:
+            raise ValueError(f"{width} experts in {n_group} groups, "
+                             f"top {topk_group} groups")
+        for k, v in (("n_routed", n_routed), ("first_expert", first_expert),
+                     ("n_group", n_group), ("topk_group", topk_group),
+                     ("routed_scale", float(routed_scale)),
+                     ("norm_topk", bool(norm_topk)),
+                     ("first_dense", first_dense)):
+            object.__setattr__(self, k, v)
+
+    @property
+    def router_width(self) -> int:
+        """The experts the router ranks: ``n_routed``, or every expert."""
+        return self.n_routed or self.n_experts
+
+
+@dataclass(frozen=True)
+class YarnConfig:
+    """YaRN rotary scaling (DeepSeek-V2's ``rope_scaling``, type yarn):
+    the rotary frequencies blended between the base ones and the base
+    ones over ``factor`` by a linear ramp over the dimensions whose
+    rotations at ``original_max_position_embeddings`` lie between
+    ``beta_slow`` and ``beta_fast``; cos/sin scaled by mscale(factor,
+    mscale) / mscale(factor, mscale_all_dim) and the softmax by
+    mscale(factor, mscale_all_dim) squared, mscale(s, m) = 0.1 m ln s + 1."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+    type: str = "yarn"
+
+    def __post_init__(self):
+        if self.type != "yarn":
+            raise ValueError(f"rope scaling {self.type!r}: only yarn")
 
 
 @dataclass(frozen=True)
@@ -36,6 +116,9 @@ class MLAConfig:
 
     KV is cached as a single ``kv_lora_rank + qk_rope_head_dim`` latent
     vector per token — the KV cache is ~9x smaller than GQA at kv=128.
+    ``rope_scaling`` (init-only, read back as a ``YarnConfig`` or None,
+    as ``MoEConfig``'s extras are) scales the rope dims' rotary table
+    and the softmax as YaRN does; None keeps the plain table.
     """
 
     kv_lora_rank: int = 512
@@ -43,6 +126,12 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+    rope_scaling: InitVar[Optional[Mapping]] = None
+
+    def __post_init__(self, rope_scaling):
+        if isinstance(rope_scaling, Mapping):
+            rope_scaling = YarnConfig(**rope_scaling)
+        object.__setattr__(self, "rope_scaling", rope_scaling)
 
 
 @dataclass(frozen=True)
@@ -98,6 +187,15 @@ class ModelConfig:
     group_size: int = 1
     source: str = ""                 # provenance note [arXiv/hf; tier]
 
+    def __post_init__(self):
+        # nested sections given as mappings (a configuration file's
+        # ``moe``, ``mla``, ``ssm`` or ``xlstm``) become their dataclasses
+        for key, cls in (("moe", MoEConfig), ("mla", MLAConfig),
+                         ("ssm", SSMConfig), ("xlstm", XLSTMConfig)):
+            val = getattr(self, key)
+            if isinstance(val, Mapping):
+                object.__setattr__(self, key, cls(**val))
+
     # ---- derived ----
     @property
     def head_dim_(self) -> int:
@@ -108,9 +206,15 @@ class ModelConfig:
         return _round_up(self.vocab, 256)
 
     @property
+    def first_dense(self) -> int:
+        """Leading dense layers before the repeated groups (0 without)."""
+        return self.moe.first_dense if self.moe is not None else 0
+
+    @property
     def n_groups(self) -> int:
-        assert self.n_layers % self.group_size == 0, (self.name, self.n_layers, self.group_size)
-        return self.n_layers // self.group_size
+        n = self.n_layers - self.first_dense
+        assert n % self.group_size == 0, (self.name, self.n_layers, self.group_size)
+        return n // self.group_size
 
     def layer_kinds(self) -> list[str]:
         """Sequence-mixer kind for each layer inside one scan group."""
@@ -157,7 +261,13 @@ class ModelConfig:
             n += d * self.padded_vocab  # classifier head
         kinds, ffns = self.layer_kinds(), self.ffn_kinds()
         per_group = 0
-        for kind, ffn in zip(kinds, ffns):
+        lead = ([("attn", "dense")] * self.first_dense if self.first_dense
+                else [])
+        for i, (kind, ffn) in enumerate(list(zip(kinds, ffns)) + lead):
+            if i == len(kinds):
+                # the leading dense layers, counted once, not a group's
+                n += per_group * self.n_groups
+                per_group = 0
             if kind == "attn":
                 if self.mla is not None:
                     m = self.mla
@@ -190,9 +300,8 @@ class ModelConfig:
                 m = self.moe
                 n_routed = m.top_k if active_only else m.n_experts
                 per_group += 3 * d * m.d_ff_expert * (n_routed + m.n_shared)
-                per_group += d * m.n_experts                    # router
-        n += per_group * self.n_groups
-        return n
+                per_group += d * m.router_width                 # router
+        return n + per_group * (1 if lead else self.n_groups)
 
 
 @dataclass(frozen=True)

@@ -2,8 +2,16 @@
 top-6 experts.  60L d_model=5120 128H d_ff_expert=1536 vocab=102400
 [arXiv:2405.04434; hf].
 
-Per the assignment line, every layer is MoE with d_ff=1536 experts (the
-official model's single first dense layer is folded into the MoE stack).
+This is the JAX package's form of the model, the twin that the parity
+tests hold the port to: every layer is MoE with d_ff=1536 experts (the
+official model's single first dense layer is folded into the MoE stack),
+the top-6 gates are renormalised, routing is greedy over all 160 experts
+(no groups, no ``routed_scaling_factor``) and the rope has no YaRN.  The
+published form (a leading dense layer of 12,288, group-limited routing
+over 8 groups, top-3 groups, gates times 16 not renormalised, YaRN with
+factor 40, and one card's 20-expert share of a 30-layer stage) is
+``portbench/configs/deepseek-v2-236b.json``, which the port builds
+through the init-only fields of ``MoEConfig`` and ``MLAConfig``.
 MLA caches a 512+64 latent per token: the KV cache is ~9x smaller than
 GQA kv=128 would be.  Attention runs at dk 192 (128 + 64 rope) / dv 128.
 

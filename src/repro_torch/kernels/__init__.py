@@ -8,6 +8,8 @@
                       an autograd Function (csrc/flash_attention.cu)
   mamba_scan        — the chunked SSD (Mamba-2) scan forward
                       (csrc/mamba_scan.cu)
+  mla_decode        — one-token absorbed MLA decode over a latent cache
+                      (csrc/mla_decode.cu)
   ssd_ablation      — where the bf16 SSD scan's time goes: its kernels
                       timed on the card with one part of the work cut
   decode_bench      — the bf16 decode kernels timed cold on the card, at
@@ -33,12 +35,13 @@ def _wrappers() -> dict:
                                                  fused_slot_gate)
     from repro_torch.kernels.flash_attention import flash_bwd, flash_fwd
     from repro_torch.kernels.mamba_scan import ssd_scan
+    from repro_torch.kernels.mla_decode import mla_decode
     return {"fused_charge_batch": fused_charge_batch,
             "fused_slot_gate": fused_slot_gate,
             "decode_attention": decode_attention,
             "paged_decode_attention": paged_decode_attention,
             "flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan, "mla_decode": mla_decode}
 
 
 def launch_counts() -> dict:

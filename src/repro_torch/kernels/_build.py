@@ -29,7 +29,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # per-source extra flags: the enforcement kernels must not contract
 # multiply-adds behind the decision code's back (see the source note)
 EXTRA_FLAGS = {"enforcement": ["--fmad=false"], "decode_attention": [],
-               "flash_attention": [], "mamba_scan": []}
+               "flash_attention": [], "mamba_scan": [], "mla_decode": []}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: dict = {}

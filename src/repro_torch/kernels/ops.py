@@ -17,6 +17,7 @@ from typing import Optional
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mamba_scan as _ssd
+from repro_torch.kernels import mla_decode as _mla
 from repro_torch.kernels import ref
 
 
@@ -32,6 +33,12 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     """Paged-pool single-token decode (no caller in the engine yet)."""
     return _decode.paged_decode_attention(q, k_pages, v_pages, page_table,
                                           lengths, scale=scale)
+
+
+def mla_decode(q_lat, q_rope, ckv, krope, lengths):
+    """Absorbed MLA decode over a latent cache (no kernel in the
+    reference, whose decode is lax: the card's bf16 serving path)."""
+    return _mla.mla_decode(q_lat, q_rope, ckv, krope, lengths)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -7,8 +7,8 @@ hand-written flash kernels (MLA at dk 192 / dv 128); the decode forms
 write the per-slot cache in place at row ``lengths[b]`` (the reference
 returns an updated copy): ``{k, v}: (B, S_max, Hkv, hd)`` for GQA,
 decoded by the decode kernel, and the latent ``{ckv: (B, S_max, L),
-krope: (B, S_max, rd)}`` for MLA, decoded in torch as the reference's
-lax code does.
+krope: (B, S_max, rd)}`` for MLA, decoded by the latent decode kernel
+in bf16 and in torch in f32, as the reference's lax code does.
 """
 from __future__ import annotations
 
@@ -16,7 +16,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, rmsnorm, rope_table
+from repro_torch.kernels.mla_decode import mla_decode_plain
+from repro_torch.models.layers import (apply_rope, rmsnorm, rope_table,
+                                       yarn_mscale)
+from repro_torch.tracing import span
 
 
 def _heads(t, hd):
@@ -75,6 +78,18 @@ def _proj(x, w):
                                                    *w.shape[1:])
 
 
+def mla_scale(cfg: ModelConfig) -> float:
+    """The softmax scale: dk ** -0.5, times YaRN's mscale(factor,
+    mscale_all_dim) squared where the rope is YaRN-scaled and that mscale
+    is given (DeepSeek-V2's ``softmax_scale``)."""
+    m = cfg.mla
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    y = m.rope_scaling
+    if y is not None and y.mscale_all_dim:
+        scale *= yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return scale
+
+
 def _mla_q(cfg: ModelConfig, p, x, cos, sin):
     """Shared q path -> (q_nope (B,S,H,nd), q_rope (B,S,H,rd))."""
     m = cfg.mla
@@ -88,8 +103,8 @@ def _mla_q(cfg: ModelConfig, p, x, cos, sin):
 def mla_forward(cfg: ModelConfig, p, x, cos, sin, *, causal: bool = True):
     """Prefill/train MLA (``attention.py:144-167`` of the reference): the
     latent expanded to per-head K/V, k_rope broadcast over the heads, the
-    flash kernels at dk = nope + rope (192) and dv (128), scale dk**-0.5.
-    x: (B, S, d) -> (B, S, d); cos/sin: (S, rd/2)."""
+    flash kernels at dk = nope + rope (192) and dv (128), scale
+    ``mla_scale``.  x: (B, S, d) -> (B, S, d); cos/sin: (S, rd/2)."""
     m = cfg.mla
     B, S, _ = x.shape
     H, L = cfg.n_heads, m.kv_lora_rank
@@ -102,9 +117,8 @@ def mla_forward(cfg: ModelConfig, p, x, cos, sin, *, causal: bool = True):
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)],
                   dim=-1)
-    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
     o = ops.flash_attention(q, k, v.contiguous(), causal=causal,
-                            scale=qk_dim ** -0.5)
+                            scale=mla_scale(cfg))
     return o.reshape(B, S, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
 
 
@@ -112,16 +126,18 @@ def mla_decode(cfg: ModelConfig, p, x, cache, lengths):
     """Absorbed-matrices MLA decode against the latent cache
     (``attention.py:179-245`` of the reference): W_UK is absorbed into q and
     W_UV into the output, so the latent ``{ckv (B,S_max,L), krope
-    (B,S_max,rd)}`` is attended directly, in blocks of min(2048, S_max)
-    under an f32 online softmax, products of the cache's dtype accumulated
-    in f32.  The reference's code is lax, not a kernel, so this is torch on
+    (B,S_max,rd)}`` is attended directly under an f32 online softmax,
+    products of the cache's dtype accumulated in f32 (the span
+    ``mla.latent_decode``).  The reference's code is lax, not a kernel: a
+    bf16 cache (the serving path) takes ``ops.mla_decode``, the kernel on
+    a card, and an f32 one (the parity path) its plain torch version on
     every device.  Writes this token's latent row ``lengths[b]`` in place
     and returns out (B, 1, d)."""
     m = cfg.mla
     B = x.shape[0]
     H, L = cfg.n_heads, m.kv_lora_rank
     cos, sin = rope_table(1, m.qk_rope_head_dim, cfg.rope_theta,
-                          positions=lengths[:, None])
+                          positions=lengths[:, None], yarn=m.rope_scaling)
     q_nope, q_rope = _mla_q(cfg, p, x, cos, sin)          # (B, 1, H, *)
     dkv = x @ p["w_dkv"]
     ckv_new = _rms(dkv[..., :L], p["kv_norm"], cfg.norm_eps)
@@ -132,38 +148,26 @@ def mla_decode(cfg: ModelConfig, p, x, cache, lengths):
     ckv[bidx, rows] = ckv_new[:, 0].to(ckv.dtype)
     krope[bidx, rows] = krope_new[:, 0].to(krope.dtype)
 
-    q_abs = torch.einsum("bhk,lhk->bhl", q_nope[:, 0], p["w_uk"])
-    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    qf = (q_abs * scale).to(ckv.dtype).float()
-    qr = (q_rope[:, 0] * scale).to(krope.dtype).float()
-    s_max = ckv.shape[1]
-    bs = min(2048, s_max)
-    live = lengths.long() + 1
-    acc = torch.zeros(B, H, L, dtype=torch.float32, device=x.device)
-    mx = torch.full((B, H), float("-inf"), dtype=torch.float32,
-                    device=x.device)
-    l = torch.zeros(B, H, dtype=torch.float32, device=x.device)
-    # the reference's S_max // bs whole blocks: a tail past the last one
-    # is not attended (the engine's S_max is a multiple of bs)
-    for i in range(s_max // bs):
-        cb = ckv[:, i * bs:(i + 1) * bs].float()
-        rb = krope[:, i * bs:(i + 1) * bs].float()
-        s = (torch.einsum("bhl,bsl->bhs", qf, cb)
-             + torch.einsum("bhr,bsr->bhs", qr, rb))
-        pos = i * bs + torch.arange(bs, device=x.device)
-        s = torch.where((pos[None] < live[:, None])[:, None], s,
-                        torch.full_like(s, -1e30))
-        m_new = torch.maximum(mx, s.amax(-1))
-        alpha = torch.exp(mx - m_new)
-        pr = torch.exp(s - m_new[..., None])
-        l = l * alpha + pr.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhs,bsl->bhl", pr.to(ckv.dtype).float(), cb)
-        mx = m_new
-    o_lat = (acc / torch.clamp(l, min=1e-30)[..., None]).to(x.dtype)
+    with span("mla.latent_decode"):
+        o_lat = _latent_attend(q_nope, q_rope, p["w_uk"], ckv, krope,
+                               lengths, mla_scale(cfg))
     o = torch.einsum("bhl,lhv->bhv", o_lat.float(),
                      p["w_uv"].float()).to(x.dtype)
     return (o.reshape(B, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1]))[:, None]
+
+
+def _latent_attend(q_nope, q_rope, w_uk, ckv, krope, lengths, scale):
+    """The absorbed attention over the latent rows: q_nope through W_UK
+    into the latent space, both parts of q scaled and rounded to the
+    cache's dtype, then softmax(q_abs c_kv + q_rope k_rope) over each
+    slot's live rows; the latent output (B, H, L) in q's dtype."""
+    q_abs = torch.einsum("bhk,lhk->bhl", q_nope[:, 0], w_uk)
+    qf = (q_abs * scale).to(ckv.dtype).contiguous()
+    qr = (q_rope[:, 0] * scale).to(krope.dtype).contiguous()
+    live = (lengths + 1).to(torch.int32)
+    attend = (ops.mla_decode if ckv.dtype == torch.bfloat16
+              else mla_decode_plain)
+    return attend(qf, qr, ckv, krope, live).to(q_nope.dtype)
 
 
 # ================================================================ dispatch

@@ -6,6 +6,7 @@ leaves to XLA stay plain ``@`` products here.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -30,21 +31,51 @@ def rmsnorm(p, x, eps: float = 1e-5):
     return (out * p["scale"].float()).to(x.dtype)
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention scale: 0.1 mscale ln(factor) + 1 (1 at factor <=
+    1), as DeepSeek-V2's ``yarn_get_mscale``."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _yarn_bounds(yarn, dim: int, theta: float) -> tuple:
+    """The first and last rotary pair of YaRN's ramp: the dimensions
+    whose rotations at the original context lie between beta_fast and
+    beta_slow (``yarn_find_correction_range``)."""
+    def at(rot):
+        return (dim * math.log(yarn.original_max_position_embeddings
+                               / (rot * 2 * math.pi))) / (2 * math.log(theta))
+    low = max(math.floor(at(yarn.beta_fast)), 0)
+    high = min(math.ceil(at(yarn.beta_slow)), dim - 1)
+    return low, (high + 0.001 if low == high else high)
+
+
 def rope_table(seq_len: int, head_dim: int, theta: float, positions=None,
-               device=None):
-    """(S, hd/2) cos/sin tables in f32; ``positions`` overrides arange."""
+               device=None, yarn=None):
+    """(S, hd/2) cos/sin tables in f32; ``positions`` overrides arange.
+    ``yarn`` (a ``YarnConfig``) blends each pair's frequency between the
+    base one and the base one over ``yarn.factor`` by YaRN's ramp and
+    scales cos/sin by the ratio of its two mscales."""
     if positions is None:
         positions = torch.arange(seq_len, dtype=torch.float32, device=device)
     else:
         positions = positions.float()
     half = head_dim // 2
-    exps = -torch.arange(0, half, dtype=torch.float32,
-                         device=positions.device) / half
+    idx = torch.arange(0, half, dtype=torch.float32, device=positions.device)
     # a Python-float base: a device tensor built from ``theta`` here
     # would be a host-to-device copy, which waits for the stream
-    freqs = theta ** exps
+    freqs = theta ** (-idx / half)
+    if yarn is not None:
+        low, high = _yarn_bounds(yarn, head_dim, theta)
+        extra = 1.0 - torch.clamp((idx - low) / (high - low), 0, 1)
+        freqs = freqs / yarn.factor * (1 - extra) + freqs * extra
     ang = positions[..., None] * freqs
-    return torch.cos(ang), torch.sin(ang)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if yarn is not None:
+        m = (yarn_mscale(yarn.factor, yarn.mscale)
+             / yarn_mscale(yarn.factor, yarn.mscale_all_dim))
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
+    return cos, sin
 
 
 def apply_rope(x, cos, sin):

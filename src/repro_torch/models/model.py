@@ -11,7 +11,11 @@ Mamba + 1 attention layer a group, MoE every other layer; xLSTM: 7 mLSTM
 Parameters keep the JAX package's tree:
 ``embed.tok`` (and ``embed.head`` when untied), per-position ``groups``
 whose leaves are stacked on a leading ``n_groups`` axis, and
-``out_norm``.  The decode state is a per-position list of stacked
+``out_norm``; a model with leading dense layers (``cfg.first_dense``,
+DeepSeek-V2's first layer: attention and a dense FFN of ``d_ff`` before
+the MoE groups) has them as ``lead``, stacked on a leading
+``first_dense`` axis, and their caches as the last entry of the decode
+state (``state_kinds``).  The decode state is a per-position list of stacked
 ``{k, v}: (n_groups, B, S_max, Hkv, hd)`` caches (GQA), ``{ckv:
 (n_groups, B, S_max, L), krope: (n_groups, B, S_max, rd)}`` latent
 caches (MLA), or recurrent states whose every leaf is ``(n_groups, B,
@@ -34,6 +38,7 @@ of ``dots_with_no_batch_dims_saveable``).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -73,6 +78,16 @@ def head_dims(cfg: ModelConfig) -> tuple:
 
 def _rope_dim(cfg: ModelConfig) -> int:
     return cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.head_dim_
+
+
+def _yarn(cfg: ModelConfig):
+    return cfg.mla.rope_scaling if cfg.mla is not None else None
+
+
+def state_kinds(cfg: ModelConfig) -> list:
+    """The mixer kind of each entry of the decode state: the groups'
+    positions, then the leading dense layers' attention caches."""
+    return cfg.layer_kinds() + (["attn"] if cfg.first_dense else [])
 
 
 def check_card_training(cfg: ModelConfig) -> None:
@@ -137,7 +152,7 @@ def _ffn_leaves(cfg: ModelConfig, kind: str) -> dict:
                 "w_down": Leaf((cfg.d_ff, d), "small")}
     m = cfg.moe
     E, f = m.n_experts, m.d_ff_expert
-    out = {"router": Leaf((d, E), f32=True),
+    out = {"router": Leaf((d, m.router_width), f32=True),
            "wg": Leaf((E, d, f)), "wu": Leaf((E, d, f)),
            "wd": Leaf((E, f, d), "small")}
     if m.n_shared:
@@ -164,6 +179,15 @@ def param_leaves(cfg: ModelConfig) -> dict:
             ent["ln2"] = {"scale": Leaf((d,), "ones")}
             ent["ffn"] = _ffn_leaves(cfg, ffn)
         groups.append(stacked(ent))
+    lead = None
+    if cfg.first_dense:
+        lead = tree_map(
+            lambda l: l._replace(shape=(cfg.first_dense,) + l.shape),
+            {"ln1": {"scale": Leaf((d,), "ones")},
+             "mixer": _mixer_leaves(cfg, "attn"),
+             "ln2": {"scale": Leaf((d,), "ones")},
+             "ffn": _ffn_leaves(cfg, "dense")},
+            is_leaf=lambda x: isinstance(x, Leaf))
     embed = {"tok": Leaf((cfg.padded_vocab, d))}
     if cfg.frontend == "vision":
         embed["patch_proj"] = Leaf((d, d))
@@ -172,8 +196,11 @@ def param_leaves(cfg: ModelConfig) -> dict:
         embed["mask_emb"] = Leaf((d,))
     if not cfg.tie_embeddings:
         embed["head"] = Leaf((d, cfg.padded_vocab))
-    return {"embed": embed, "groups": groups,
-            "out_norm": {"scale": Leaf((d,), "ones")}}
+    out = {"embed": embed, "groups": groups,
+           "out_norm": {"scale": Leaf((d,), "ones")}}
+    if lead is not None:
+        out["lead"] = lead
+    return out
 
 
 def _is_leaf(x) -> bool:
@@ -220,9 +247,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     # the groups are drawn before the embedding, the order of earlier
     # versions, so a seed keeps giving the same dense weights
     groups = tree_map(make, leaves["groups"], is_leaf=_is_leaf)
-    return {"embed": tree_map(make, leaves["embed"], is_leaf=_is_leaf),
-            "groups": groups,
-            "out_norm": tree_map(make, leaves["out_norm"], is_leaf=_is_leaf)}
+    out = {"embed": tree_map(make, leaves["embed"], is_leaf=_is_leaf),
+           "groups": groups,
+           "out_norm": tree_map(make, leaves["out_norm"], is_leaf=_is_leaf)}
+    if "lead" in leaves:
+        out["lead"] = tree_map(make, leaves["lead"], is_leaf=_is_leaf)
+    return out
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> dict:
@@ -253,9 +283,9 @@ def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cuda",
     _check_decodes(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
-    n = cfg.n_groups
     out = []
-    for kind in cfg.layer_kinds():
+    for i, kind in enumerate(state_kinds(cfg)):
+        n = cfg.n_groups if i < cfg.group_size else cfg.first_dense
         if kind == "attn" and cfg.mla is not None:
             m = cfg.mla
             out.append({"ckv": torch.zeros(n, batch, s_max, m.kv_lora_rank,
@@ -289,14 +319,16 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
-def _apply_ffn(cfg, ffn_kind, p, x, perf):
-    """x plus the layer's FFN, and its MoE aux loss (None without MoE)."""
+def _apply_ffn(cfg, ffn_kind, p, x, perf, *, live=None, counts=None):
+    """x plus the layer's FFN, and its MoE aux loss (None without MoE);
+    ``live`` and ``counts`` as ``moe_forward`` takes them."""
     if ffn_kind == "none":
         return x, None
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if ffn_kind == "dense":
         return x + mlp(p["ffn"], h), None
-    y, aux = moe_mod.moe_forward(cfg, p["ffn"], h, perf=perf)
+    y, aux = moe_mod.moe_forward(cfg, p["ffn"], h, perf=perf, live=live,
+                                 counts=counts)
     return x + y, aux
 
 
@@ -305,13 +337,19 @@ _MIXER_DECODE = {"mamba": ssm.mamba_decode, "mlstm": xlstm.mlstm_decode,
 
 
 def decode_step(cfg: ModelConfig, params, state, tokens, lengths, *,
-                perf: PerfConfig = DEFAULT_PERF, keep=None):
+                perf: PerfConfig = DEFAULT_PERF, keep=None, counts=None):
     """One decode step.
 
     tokens: (B,) int current input token per slot.
     lengths: (B,) int32 tokens already in cache (this token's position).
     keep: None, or a (B,) bool mask of the slots whose recurrent states
     take their new value (the engine's gate).
+    counts: None, or a device tensor whose entries 0 and 1 gain the MoE
+    layers' held assignments of the slots ``keep`` marks (all where it
+    is None) and their expert-product rows.
+    The MoE layers take the dense dispatch (``moe.py``) whatever
+    ``perf.moe_impl`` says: no assignment is dropped, so a slot's logits
+    do not depend on the other slots.
     Returns (logits (B, V) f32, state).  The state is updated in place:
     each attention layer's cache gains row ``lengths[b]`` for every slot
     ``b``, and each recurrent layer's state takes its new value, only
@@ -322,6 +360,14 @@ def decode_step(cfg: ModelConfig, params, state, tokens, lengths, *,
     _check_decodes(cfg)
     x = embed_tokens(cfg, params["embed"], tokens)[:, None]
     kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
+    dense = dataclasses.replace(perf, moe_impl="dense")
+    for layer in range(cfg.first_dense):
+        with span("model.layer.dense"):
+            p = _layer(params["lead"], layer)
+            st = {k: t[layer] for k, t in state[-1].items()}
+            hn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+            x = x + attn_decode(cfg, p["mixer"], hn, st, lengths)
+            x, _ = _apply_ffn(cfg, "dense", p, x, perf)
     # one profiler range a layer, named by its mixer (tracing.py)
     names = [f"model.layer.{kind}" for kind in kinds]
     for layer in range(cfg.n_groups):
@@ -343,7 +389,8 @@ def decode_step(cfg: ModelConfig, params, state, tokens, lengths, *,
                                 keep.view(-1, *(1,) * (t.dim() - 1)),
                                 t.to(st[k].dtype), st[k], out=st[k])
                 x = x + y
-                x, _ = _apply_ffn(cfg, ffns[pos], p, x, perf)
+                x, _ = _apply_ffn(cfg, ffns[pos], p, x, dense, live=keep,
+                                  counts=counts)
     x = rmsnorm(params["out_norm"], x, cfg.norm_eps)
     return lm_head(cfg, params["embed"], x)[:, 0], state
 
@@ -433,7 +480,8 @@ def forward(cfg: ModelConfig, params, batch, *,
     causal = (not cfg.encoder_only) if causal is None else causal
     x = _embed(cfg, params, batch)
     S = x.shape[1]
-    cos, sin = (rope_table(S, _rope_dim(cfg), cfg.rope_theta, device=x.device)
+    cos, sin = (rope_table(S, _rope_dim(cfg), cfg.rope_theta, device=x.device,
+                           yarn=_yarn(cfg))
                 if cfg.rope_theta else (None, None))
     per_pos = [_unstack(gp, cfg.n_groups) for gp in params["groups"]]
     kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
@@ -452,10 +500,19 @@ def forward(cfg: ModelConfig, params, batch, *,
                 aux = a if aux is None else aux + a
         return h, aux
 
+    def lead_body(h, p):
+        hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
+        h = h + attn_forward(cfg, p["mixer"], hn, cos, sin, causal=causal)
+        return _apply_ffn(cfg, "dense", p, h, perf)[0]
+
     # remat only matters where a backward will run (not under
     # torch.no_grad or inference_mode, as in a prefill)
-    body = (_remat(group_body, perf.remat) if torch.is_grad_enabled()
-            else group_body)
+    grad = torch.is_grad_enabled()
+    body = _remat(group_body, perf.remat) if grad else group_body
+    if cfg.first_dense:
+        lead = _remat(lead_body, perf.remat) if grad else lead_body
+        for p in _unstack(params["lead"], cfg.first_dense):
+            x = lead(x, p)
     auxs = []
     for i in range(cfg.n_groups):
         x, aux = body(x, *(pos[i] for pos in per_pos))

@@ -224,6 +224,16 @@ class Engine:
         # marks a step whose device work was a replay
         self._graph = None
         self._graphed = 0
+        # an MoE model's step counts its held experts' assignments and
+        # expert-product rows on the device (``decode_step``'s
+        # ``counts``); the step copies them to the host behind its work,
+        # and its first read waits for both
+        self._moe = None
+        if cfg.moe is not None:
+            self._moe = {
+                "dev": torch.zeros(2, dtype=torch.int64, device=self.device),
+                "host": torch.zeros(2, dtype=torch.int64,
+                                    pin_memory=self.device.type == "cuda")}
         if self.device.type == "cuda":
             self._hold_graph()
 
@@ -616,7 +626,7 @@ class Engine:
         # decode_step writes its new value under the gate (``keep``), so
         # a denied slot keeps its state bit for bit.
         state = self.caches.state
-        attn = [pos for kind, pos in zip(self.cfg.layer_kinds(), state)
+        attn = [pos for kind, pos in zip(M.state_kinds(self.cfg), state)
                 if kind == "attn"]
         bidx = torch.arange(e.max_slots, device=self.device)
         rows = lengths.long()
@@ -626,8 +636,12 @@ class Engine:
         for pos in attn:
             with span("engine.merge_save"):
                 saved.append({k: t[:, bidx, rows] for k, t in pos.items()})
+        moe = self._moe
+        if moe is not None:
+            moe["dev"].zero_()
         logits, _ = M.decode_step(self.cfg, self.params, state, tokens,
-                                  lengths, keep=gate)
+                                  lengths, keep=gate,
+                                  counts=None if moe is None else moe["dev"])
         for pos, old in zip(attn, saved):
             with span("engine.merge_restore"):
                 for k, t in pos.items():
@@ -694,6 +708,8 @@ class Engine:
             nxt, new_ctrl, granted, _ = self._device_step(
                 dev_in[0], dev_in[1], dev_in[2], dev_in[3], host_gate,
                 e.mode == "inkernel")
+            if self._moe is not None:
+                self._moe["host"].copy_(self._moe["dev"], non_blocking=True)
         marks.append(clock())
         with span("engine.readback"):
             self._view.commit(new_ctrl)
@@ -714,7 +730,9 @@ class Engine:
             self._daemon()
         marks.append(clock())
         tracing.record_step(self.trace_id, self.step_no, marks,
-                            self._graphed)
+                            self._graphed,
+                            () if self._moe is None
+                            else self._moe["host"].tolist())
         self.step_no += 1
         self.metrics.steps = self.step_no
 

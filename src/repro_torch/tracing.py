@@ -16,8 +16,12 @@ Three things, none of them part of the control state:
   ``Engine.step`` writes one row of ``STEP_COLUMNS`` into a ring of
   ``STEP_CAPACITY`` steps: the engine's id, its ``step_no``, start and
   end on ``time.perf_counter_ns()``, the nanoseconds of each phase of
-  ``PHASES``, which tile the step, and ``graphed``: 1 where the step's
-  device work was issued as one CUDA graph's replay, else 0.
+  ``PHASES``, which tile the step, ``graphed``: 1 where the step's
+  device work was issued as one CUDA graph's replay, else 0, and an MoE
+  model's ``moe_assigned`` (the routed assignments the held experts
+  received over the step's MoE layers) and ``moe_rows`` (the
+  expert-product rows its dispatch computed), counted on the device
+  inside the step; 0 and 0 without MoE layers.
 * Admission records: ``Engine.submit`` stamps a session's submission,
   ``Engine._try_admit`` its admission (``admit_ns`` is -1 while it
   waits), with its priority, in a ring of ``SESSION_CAPACITY``.
@@ -42,7 +46,7 @@ from torch._C._profiler import _RecordFunctionFast
 PHASES = ("flush", "policy", "inputs", "issue", "readback", "sessions",
           "daemon")
 STEP_COLUMNS = ("engine", "step", "start_ns", "end_ns") + PHASES + (
-    "graphed",)
+    "graphed", "moe_assigned", "moe_rows")
 SESSION_COLUMNS = ("engine", "priority", "submit_ns", "admit_ns")
 STEP_CAPACITY = 8192
 SESSION_CAPACITY = 8192
@@ -115,11 +119,14 @@ def engine_id() -> int:
     return next(_engine_ids)
 
 
-def record_step(engine: int, step: int, marks: list, graphed: int) -> None:
-    """One step's row from its ``len(PHASES) + 1`` boundaries (ns) and
-    whether its device work was a graph's replay (1) or not (0)."""
+def record_step(engine: int, step: int, marks: list, graphed: int,
+                moe=()) -> None:
+    """One step's row from its ``len(PHASES) + 1`` boundaries (ns),
+    whether its device work was a graph's replay (1) or not (0) and its
+    MoE counts ``(assigned, rows)`` (none: 0, 0)."""
     _steps.append([engine, step, marks[0], marks[-1]]
-                  + [b - a for a, b in zip(marks, marks[1:])] + [graphed])
+                  + [b - a for a, b in zip(marks, marks[1:])] + [graphed]
+                  + (list(moe) or [0, 0]))
 
 
 def record_submit(engine: int, priority: int, t_ns: int) -> int:

@@ -31,8 +31,10 @@ def _name(source: str) -> str:
 
 @pytest.mark.parametrize("edited, changes", [
     ("flash_attention.cu", {"flash_attention"}),
-    ("hopper.cuh", {"decode_attention", "flash_attention", "mamba_scan"}),
-    ("inner.cuh", {"decode_attention", "flash_attention", "mamba_scan"}),
+    ("hopper.cuh", {"decode_attention", "flash_attention", "mamba_scan",
+                    "mla_decode"}),
+    ("inner.cuh", {"decode_attention", "flash_attention", "mamba_scan",
+                   "mla_decode"}),
     ("mamba_scan.cu", {"mamba_scan"}),
     ("unused.cuh", set()),
 ])
